@@ -1,10 +1,10 @@
 """The five BASELINE.md benchmark configs, end to end.
 
-Measures the TPU build against the reference algorithm's numpy path (the
-exact searchsorted + ravel_multi_index + bincount pipeline of
-/root/reference/xhistogram/core.py:73-186), printing one JSON line per
-config. Scale with --scale (default 1.0; bench.py runs config 3 at full
-1e9-element scale separately).
+Measures the JAX build against the reference algorithm's numpy path (the
+exact searchsorted + ravel_multi_index + bincount pipeline of the
+reference's core.py:73-186), printing one JSON line per config, each naming
+its device. Scale with --scale (default 1.0; bench.py runs config 3 at the
+full 2**30-pair scale separately).
 
 Usage: python benchmarks/run_baselines.py [--scale S] [--method M]
 """
@@ -18,13 +18,13 @@ import numpy as np
 
 
 def _time(f, reps=3):
-    # timing forces a host transfer of the (small) result —
-    # jax.block_until_ready does not reliably wait under remote backends
-    np.asarray(f())  # compile + settle
+    import jax
+
+    jax.block_until_ready(f())  # compile + settle
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        np.asarray(f())
+        jax.block_until_ready(f())
         times.append(time.perf_counter() - t0)
     return float(np.median(times))
 
@@ -93,27 +93,34 @@ def main():
     p.add_argument("--method", default="auto")
     args = p.parse_args()
 
+    import os
+
     import jax
     import jax.numpy as jnp
 
     from xhistogram_tpu.core import histogram
     from xhistogram_tpu.labeled import NamedArray
     from xhistogram_tpu.labeled import histogram as lhistogram
+    from xhistogram_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     backend = jax.default_backend()
+    device_kind = jax.devices()[0].device_kind
     s = args.scale
     rng = np.random.RandomState(0)
     key = jax.random.PRNGKey(0)
     results = []
 
-    def report(config, dt_tpu, dt_np, nbytes, parity):
+    def report(config, dt_dev, dt_np, nbytes, parity):
         row = {
             "config": config,
             "backend": backend,
-            "tpu_ms": round(dt_tpu * 1e3, 2),
-            "numpy_ms": round(dt_np * 1e3, 2),
-            "GBps": round(nbytes / dt_tpu / 1e9, 2),
-            "speedup_vs_numpy": round(dt_np / dt_tpu, 1),
+            "device_kind": device_kind,
+            "device_ms": dt_dev * 1e3,
+            "numpy_ms": dt_np * 1e3,
+            "GBps": nbytes / dt_dev / 1e9,
+            "speedup_vs_numpy": dt_np / dt_dev,
             "parity": bool(parity),
         }
         results.append(row)

@@ -2,12 +2,12 @@
 
 Simulates a multi-year ocean-model output read month by month (the zarr /
 netCDF access pattern) and accumulates a volume-weighted joint T-S histogram
-on the device with ``StreamingHistogram`` — the TPU-native analog of the
+on the device with ``StreamingHistogram`` — the JAX analog of the
 reference's dask out-of-core path (reference core.py:403-439: blockwise
 partial histograms + tree-sum; here the "tree" is a device-resident
 accumulator and the chunks are whatever the loader yields).
 
-Run: `python examples/streaming_climatology.py` (CPU or TPU).
+Run: `python examples/streaming_climatology.py` (CPU or GPU).
 """
 
 import numpy as np

@@ -1,9 +1,8 @@
 """Measure and print the PINNED host-numpy baseline constant for bench.py.
 
-VERDICT r4 weak #5: bench.py re-measured the reference numpy baseline on
-every run, so `vs_baseline` swung 90.7x (r1) -> 245x (r2) -> 1242x (r4)
-with a near-constant TPU numerator — the ratio measured the host's load,
-not the work. The fix is a stored median-of-N measurement taken on a
+Re-measuring the reference numpy baseline on every run made
+`vs_baseline` swing 90.7x -> 245x -> 1242x with a near-constant device
+numerator — the ratio measured the host's load, not the work. The fix is a stored median-of-N measurement taken on a
 quiet host, re-measured only on demand (this script), with the live
 ratio still reported alongside for drift detection.
 

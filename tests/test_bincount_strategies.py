@@ -3,8 +3,8 @@ paths (ops/bincount.py) — the regimes too large to exercise through
 core.histogram at real size:
 
 - the sort strategy's scanned chunk-row split (huge reductions at huge
-  n_slots: the r3 cap measurements saw the unscanned batch kill the TPU
-  worker at 2^24 slots x 256 chunk rows of bucket positions, ~17 GB);
+  n_slots: an unscanned batch at 2^24 slots x 256 chunk rows of bucket
+  positions would take ~17 GB);
 - the scatter strategy's 2-D index fallback where the fused row offset
   ``g + n_slots*row`` would overflow int32 (m x n_slots >= 2**31).
 
@@ -137,48 +137,45 @@ def test_scatter_nonfinite_weights_inherently_faithful():
     assert out[3] == 0.0
 
 
-class TestCompareSumDigitize:
-    """The TPU compare-sum digitize (ops/digitize.py::_compare_sum_right)
-    must be bit-identical to searchsorted-right — same comparisons, only
-    the counting differs. The CPU suite exercises it via the module knob
-    (the auto rule enables it on the TPU backend only)."""
+class TestEdgeDigitize:
+    """The edge-compare digitize (ops/digitize.py::digitize_edges) must
+    give numpy's searchsorted-right index on comparison-form edges,
+    including NaN/inf, signed zeros, subnormals and the top-value clip."""
 
-    def _both(self, monkeypatch, a, edges, **kw):
+    def _both(self, a, edges, **kw):
         from xhistogram_tpu.ops import digitize as dg
 
-        monkeypatch.setattr(dg, "_CMP_MODE", "0")
-        ref = np.asarray(dg.digitize_edges(jnp.asarray(a),
+        got = np.asarray(dg.digitize_edges(jnp.asarray(a),
                                            jnp.asarray(edges), **kw))
-        monkeypatch.setattr(dg, "_CMP_MODE", "1")
-        cmp_ = np.asarray(dg.digitize_edges(jnp.asarray(a),
-                                            jnp.asarray(edges), **kw))
-        np.testing.assert_array_equal(cmp_, ref)
-        return ref
+        ref = np.searchsorted(edges, a, side="right")
+        if np.issubdtype(a.dtype, np.floating):
+            ref[np.isnan(a)] = len(edges)
+        else:
+            ref = ref - kw.get("n_hi_clip", 0) * (a == np.iinfo(a.dtype).max)
+        np.testing.assert_array_equal(got, ref)
+        return got
 
-    def test_float_tricky_values(self, monkeypatch):
-        edges = np.array([-np.inf, -1.0, -1e-38, 0.0, 1e-38, 1.0, np.inf],
+    def test_float_tricky_values(self):
+        edges = np.array([-np.inf, -1.0, -2e-38, 0.0, 2e-38, 1.0, np.inf],
                          np.float32)
         a = np.array(
-            [np.nan, -np.inf, np.inf, -0.0, 0.0, -1e-39, 1e-39, -1.0, 1.0,
+            [np.nan, -np.inf, np.inf, -0.0, 0.0, -1e-39, 1e-39, -2e-38,
+             2e-38, -1.0, 1.0,
              np.nextafter(np.float32(1.0), np.float32(0)),
              np.nextafter(np.float32(-1.0), np.float32(0))],
             np.float32,
         )
-        self._both(monkeypatch, a.reshape(1, -1), edges)
+        self._both(a.reshape(1, -1), edges)
 
-    def test_integer_edges_and_top_value(self, monkeypatch):
+    def test_integer_edges_and_top_value(self):
         edges = np.array([-100, -3, 0, 7, 127], np.int32)
-        a = np.array([[-128, -100, -99, -3, -1, 0, 6, 7, 126, 127]],
-                     np.int32)
-        self._both(monkeypatch, a, edges, n_hi_clip=1)
+        a = np.array([[-128, -100, -99, -3, -1, 0, 6, 7, 126, 127,
+                       np.iinfo(np.int32).max]], np.int32)
+        self._both(a, edges, n_hi_clip=1)
 
-    def test_blocked_path_and_random(self, monkeypatch):
-        """Force multiple lax.map blocks (shrink the block budget) and fuzz
-        against searchsorted on a large random draw including exact-edge
+    def test_random_with_exact_edge_hits(self):
+        """Fuzz against numpy on a large random draw including exact-edge
         hits."""
-        from xhistogram_tpu.ops import digitize as dg
-
-        monkeypatch.setattr(dg, "_CMP_BLOCK_ELEMS", 1 << 12)
         rng = np.random.RandomState(7)
         edges = np.sort(rng.randn(129)).astype(np.float32)
         a = rng.randn(3, 5000).astype(np.float32)
@@ -186,14 +183,14 @@ class TestCompareSumDigitize:
             edges, 500
         )  # exact threshold hits
         a.ravel()[:3] = [np.nan, np.inf, -np.inf]
-        self._both(monkeypatch, a, edges)
+        self._both(a, edges)
 
     def test_full_pipeline_parity(self, monkeypatch):
-        """End-to-end: histogram() with the compare-sum digitize forced on
-        matches numpy bit-exactly via an XLA strategy."""
+        """End-to-end: histogram() with the uniform digitize switched off
+        (every input compares edges) matches numpy bit-exactly."""
         from xhistogram_tpu.ops import digitize as dg
 
-        monkeypatch.setattr(dg, "_CMP_MODE", "1")
+        monkeypatch.setattr(dg, "UNIFORM_DIGITIZE", False)
         from xhistogram_tpu import histogram
 
         rng = np.random.RandomState(8)

@@ -316,7 +316,7 @@ def test_no_args_raises():
         histogram(bins=10)
 
 
-@pytest.mark.parametrize("method", ["scatter", "pallas"])
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort"])
 def test_density_exact_bin_areas_f64_edges(method):
     """Density must divide by areas of the ORIGINAL edges, not the
     transformed comparison edges (regression: the half-open transform

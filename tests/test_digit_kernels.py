@@ -1,13 +1,11 @@
-"""Per-digit-output ("digN") kernel mode — the r5 single-pass multi-digit
-engine (doc/perf_model.md headroom 5).
+"""Per-digit-output device passes — the single-pass multi-digit engine.
 
 The exact wide-integer / f64 weight engine decomposes weights into signed
 base-2**32 WORDS host-side (intweights.host_words) and runs ONE device
-pass per word: the digN kernels extract up to 5 signed base-256 digits
-in-register behind a single digitize and emit each digit's per-slot int32
-sums as its own output (no shift-combine). These tests force
-``method='pallas'`` so every kernel family's digN variant runs under the
-TPU-semantics interpreter on CPU, with a per-digit numpy oracle.
+pass per word: the pipeline extracts up to 5 signed base-256 digits behind
+a single digitize and emits each digit's per-slot int32 sums as its own
+output (no shift-combine). These tests run every counting strategy over
+one- to two-input shapes, with a per-digit numpy oracle.
 """
 
 import numpy as np
@@ -32,19 +30,21 @@ def _np_joint_per_row(arrays2d, edges_list, w2d):
 
 
 CASES = [
-    # (family, n_inputs, m, c, nbins)
+    # (label, n_inputs, m, c, nbins)
     ("one_input", 1, 1, 3000, (12,)),
     ("joint2", 2, 1, 3000, (9, 11)),
-    ("factored", 1, 1, 3000, (1500,)),  # > one_input's 1024-bin cap
-    ("factored_per_row", 2, 4, 512, (9, 11)),
-    ("direct", 2, 4, 64, (20, 20)),
-    ("factored_packed", 2, 6, 64, (150, 90)),  # > direct's 8192 slots
+    ("many_bins", 1, 1, 3000, (1500,)),
+    ("joint2_rows", 2, 4, 512, (9, 11)),
+    ("joint2_rows_narrow", 2, 4, 64, (20, 20)),
+    ("large_grid_rows", 2, 6, 64, (150, 90)),
 ]
 
 
 @pytest.mark.parametrize("family,n_inputs,m,c,nbins", CASES)
 @pytest.mark.parametrize("n_dig", [1, 3, 5])
-def test_dig_kernels_per_family(family, n_inputs, m, c, nbins, n_dig):
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort"])
+def test_dig_kernels_per_family(family, n_inputs, m, c, nbins, n_dig,
+                                method):
     rng = np.random.RandomState(sum(map(ord, family)) * 7 + n_dig)
     arrays = [rng.rand(m, c).astype("f4") for _ in range(n_inputs)]
     edges = [np.linspace(0.0, 1.0, nb + 1) for nb in nbins]
@@ -52,19 +52,10 @@ def test_dig_kernels_per_family(family, n_inputs, m, c, nbins, n_dig):
     lo = max(span[0], -(2**31)) + 1
     hi = min(span[1], 2**31 - 1)
     word = rng.randint(lo, hi + 1, size=(m, c)).astype(np.int32)
-    # route check: the planned kernel is the family under test
-    from xhistogram_tpu.ops.pallas_hist import planned_kernel
-
-    got_family = planned_kernel(
-        n_inputs, nbins, m, c=c, weighted=True,
-        weights_dtype=np.int32, forced=True, wmode=f"dig{n_dig}",
-    )
-    assert got_family == family, got_family
-
     out = np.asarray(
         _histogram_digits(
             arrays, edges, word, n_dig, block_size="auto",
-            method="pallas",
+            method=method,
         )
     )
     assert out.dtype == np.int32
@@ -75,10 +66,10 @@ def test_dig_kernels_per_family(family, n_inputs, m, c, nbins, n_dig):
         np.testing.assert_array_equal(out[k], want.astype(np.int64))
 
 
-@pytest.mark.parametrize("method", ["auto", "pallas", "scatter", "onehot"])
+@pytest.mark.parametrize("method", ["auto", "scatter", "onehot", "sort"])
 def test_wide_engine_all_methods_exact(method):
-    """The full wide-int64 engine (words + digN passes) is exact under
-    every counting method, including forced pallas (digN kernels)."""
+    """The full wide-int64 engine (words + per-digit passes) is exact under
+    every counting method."""
     rng = np.random.RandomState(7)
     a = rng.rand(2, 600).astype("f4")
     edges = np.linspace(0.0, 1.0, 7)
@@ -126,10 +117,13 @@ def test_host_words_reconstruction():
     assert all(int(r) == int(v) for r, v in zip(recon, vals))
 
 
-def test_public_precision_rejects_internal_modes():
+@pytest.mark.parametrize(
+    "bad", ["int2", "dig3", "split", "highest", "i8", "i8x3", ""]
+)
+def test_public_precision_rejects_removed_and_internal_modes(bad):
+    """Only None and 'f64' are accepted; the error names them."""
     a = np.array([0.1, 0.6], "f4")
     e = np.array([0.0, 0.5, 1.0])
     w = np.array([1.0, 2.0], "f4")
-    for bad in ["int2", "dig3"]:
-        with pytest.raises(ValueError, match="internal"):
-            histogram(a, bins=[e], weights=w, precision=bad)
+    with pytest.raises(ValueError, match="valid values are None .* 'f64'"):
+        histogram(a, bins=[e], weights=w, precision=bad)

@@ -143,7 +143,7 @@ def test_uniform_certified_grids_bit_exact(t0i, d, nb, seed):
         edges.astype("f4").astype("f8"),
         rng.uniform(edges[0] - d, edges[-1] + d, 400),
     ]).astype("f4")
-    h, _ = histogram(data, bins=edges, method="pallas")
+    h, _ = histogram(data, bins=edges)
     expected = np.histogram(data.astype("f8"), bins=edges)[0]
     np.testing.assert_array_equal(np.asarray(h), expected)
 
@@ -172,7 +172,7 @@ def test_uniform_ds_grids_bit_exact(a, logw, nb, seed):
         rng.uniform(edges[0] - width / 8, edges[-1] + width / 8,
                     300).astype("f4"),
     ]).astype("f4")
-    h, _ = histogram(data, bins=edges, method="pallas")
+    h, _ = histogram(data, bins=edges)
     expected = np.histogram(data.astype("f8"), bins=edges)[0]
     np.testing.assert_array_equal(np.asarray(h), expected)
 
@@ -185,12 +185,9 @@ def test_uniform_ds_grids_bit_exact(a, logw, nb, seed):
 @settings(max_examples=25, deadline=None)
 @pytest.mark.slow
 def test_uniform_weighted_routing_bands_exact(ds_tier, nb, seed):
-    """Weighted shapes route to the factored kernel at LOWER bin counts
-    than unweighted (arith >24, DS >80 — measured crossovers,
-    scripts/ds_weighted_probe.py), so the 25-64 (arith) and 81-120 (DS)
-    bands run the weighted factored kernel with the O(1) digitize. Small
-    integer weights make every product and partial sum exact in the
-    split-bf16 pipeline, so the weighted result must EQUAL numpy's."""
+    """Weighted certified-uniform grids (arith and DS tiers) through the
+    O(1) digitize. Small integer weights make every partial sum exact in
+    f32, so the weighted result must EQUAL numpy's."""
     if ds_tier:
         edges = np.linspace(-4.2, 4.2, nb + 1)  # generic spacing → DS
     else:
@@ -201,7 +198,7 @@ def test_uniform_weighted_routing_bands_exact(ds_tier, nb, seed):
         rng.uniform(edges[0] - 0.5, edges[-1] + 0.5, 400),
     ]).astype("f4")
     w = rng.randint(0, 9, data.size).astype("f4")
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
+    h, _ = histogram(data, bins=edges, weights=w)
     expected = np.histogram(data.astype("f8"), bins=edges,
                             weights=w.astype("f8"))[0]
     np.testing.assert_array_equal(np.asarray(h, np.float64), expected)

@@ -4,15 +4,15 @@ The reference sums weights through np.bincount's float64 accumulation
 (reference core.py:81) — exact only to 2**53. This framework keeps integer
 weights INTEGRAL end-to-end:
 
-  - in-range (int32-viewable) weights ride the fused int8-MXU digit kernels
-    (ops/pallas_hist.py intN modes) or the XLA strategies, all bit-exact
-    modulo 2**32 — the int32/uint32 two's-complement contract;
+  - in-range (int32-viewable) weights accumulate in int32 under every
+    counting strategy, bit-exact modulo 2**32 — the int32/uint32
+    two's-complement contract;
   - numpy int64/uint64 weights beyond a lossless int32 view take the exact
     host digit path (core._wide_int_weight_histogram): exact int64/uint64
     results wherever the true sums fit the dtype — beyond numpy's own
     float64 exactness.
 
-Covered on the core, pallas-kernel, sharded, labeled, and streaming paths,
+Covered on the core, sharded, labeled, and streaming paths,
 with weights straddling 2**31 and 2**32.
 """
 
@@ -99,7 +99,7 @@ def test_judge_repro_int64_weights_exact():
         (-(2**30), 2**30),  # 4 digits, sums wrap int32
     ],
 )
-@pytest.mark.parametrize("method", ["scatter", "onehot", "sort", "pallas"])
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort", "auto"])
 def test_int32_weights_wrap_exact_all_methods(wspan, method):
     """Every strategy agrees bit-exactly with the object-int oracle wrapped
     to int32 (two's-complement contract)."""
@@ -224,24 +224,25 @@ def test_traced_int32_weights_still_work_under_jit():
 
 
 # ---------------------------------------------------------------------------
-# fused digit-kernel families (forced pallas — interpret mode on CPU)
+# int32 weights through every strategy and shape family
 
 
 @pytest.mark.parametrize(
     "config",
     [
-        # (n_inputs, kept rows, reduce cols, nbins) → kernel families
-        (1, 1, 300, (8,)),      # one_input reduce-all
-        (1, 12, 40, (8,)),      # one_input kept rows
-        (2, 1, 300, (6, 5)),    # joint2
-        (2, 1, 300, (40, 37)),  # factored (forced via slots > joint2 path)
-        (1, 6, 600, (700,)),    # factored_per_row
-        (3, 1, 200, (4, 3, 3)), # factored (3 inputs)
-        (2, 9, 50, (5, 4)),     # direct-ish kept rows
+        # (n_inputs, kept rows, reduce cols, nbins)
+        (1, 1, 300, (8,)),
+        (1, 12, 40, (8,)),
+        (2, 1, 300, (6, 5)),
+        (2, 1, 300, (40, 37)),
+        (1, 6, 600, (700,)),
+        (3, 1, 200, (4, 3, 3)),
+        (2, 9, 50, (5, 4)),
     ],
 )
 @pytest.mark.parametrize("span", [(0, 3), (-(2**20), 2**20)])
-def test_fused_digit_kernels_parity(config, span):
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort"])
+def test_fused_digit_kernels_parity(config, span, method):
     n_inputs, m, c, nbins = config
     rng = np.random.RandomState(hash((config, span)) % 2**31)
     shape = (m, c) if m > 1 else (c,)
@@ -253,15 +254,16 @@ def test_fused_digit_kernels_parity(config, span):
         exact_weighted_oracle(datas, edges_list, w, axis=axis), np.int32
     )
     h, _ = histogram(
-        *datas, bins=edges_list, weights=w, axis=axis, method="pallas"
+        *datas, bins=edges_list, weights=w, axis=axis, method=method
     )
     assert np.asarray(h).dtype == np.int32
     np.testing.assert_array_equal(np.asarray(h), exp)
 
 
-def test_digit_kernel_extreme_int32_values():
-    """Dtype-extreme weights: the in-kernel extraction must not wrap and the
-    capped 4th digit's discarded remainder must be mod-2**32 invisible."""
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort"])
+def test_digit_kernel_extreme_int32_values(method):
+    """Dtype-extreme weights wrap mod 2**32 exactly like an int32
+    accumulator."""
     vals = np.array(
         [2**31 - 1, -(2**31), 2**31 - 1, -1, 1, 127, -128, 128, -129, 0],
         np.int64,
@@ -273,7 +275,7 @@ def test_digit_kernel_extreme_int32_values():
         np.int32,
     )
     h, _ = histogram(
-        d, bins=np.array([0.0, 0.5, 1.0]), weights=w32, method="pallas"
+        d, bins=np.array([0.0, 0.5, 1.0]), weights=w32, method=method
     )
     np.testing.assert_array_equal(np.asarray(h), exp)
 
@@ -289,7 +291,7 @@ def test_uint32_device_weights_bitcast_digits():
         np.asarray(w).astype(np.int64),
     )
     exp = as_wrapped(exp_obj, np.uint32)
-    for method in ("pallas", "scatter"):
+    for method in ("scatter", "onehot", "sort"):
         h, _ = histogram(
             d, bins=np.array([0.0, 0.5, 1.0]), weights=w, method=method
         )
@@ -299,17 +301,16 @@ def test_uint32_device_weights_bitcast_digits():
 
 
 def test_precision_request_normalized_for_int_weights():
-    """precision= must not fork behavior for integer weights (they are
-    exact in every mode) — results identical, invalid values still raise."""
+    """precision='f64' must not fork behavior for integer weights (they are
+    exact already) — results identical, invalid values still raise."""
     d = np.array([0.5, 1.5, 0.7], np.float32)
     w = np.array([7, 3, 5], np.int32)
     base, _ = histogram(d, bins=np.array([0.0, 1.0, 2.0]), weights=w)
-    for prec in ("split", "highest", "i8", "i8x3"):
-        h, _ = histogram(
-            d, bins=np.array([0.0, 1.0, 2.0]), weights=w, precision=prec
-        )
-        np.testing.assert_array_equal(np.asarray(h), np.asarray(base))
-    with pytest.raises(ValueError, match="precision mode"):
+    h, _ = histogram(
+        d, bins=np.array([0.0, 1.0, 2.0]), weights=w, precision="f64"
+    )
+    np.testing.assert_array_equal(np.asarray(h), np.asarray(base))
+    with pytest.raises(ValueError, match="precision"):
         histogram(
             d, bins=np.array([0.0, 1.0, 2.0]), weights=w, precision="bogus"
         )
@@ -352,16 +353,6 @@ def test_host_digits_reconstruct(dtype):
         np.testing.assert_array_equal(recon.view(np.int64), vals)
     for dg in digits:
         assert dg.min() >= -128 and dg.max() <= 127
-
-
-def test_device_digits_counts():
-    assert intw.device_digits(np.array([0, 100], np.int32), np.int32) == 1
-    assert intw.device_digits(np.array([-300, 300], np.int32), np.int32) == 2
-    assert (
-        intw.device_digits(np.array([2**31 - 1], np.int32), np.int32) == 4
-    )  # capped (mod-2**32)
-    assert intw.device_digits(None, np.int32) == 4
-    assert intw.device_digits(None, np.uint32) == 4
 
 
 # ---------------------------------------------------------------------------

@@ -206,17 +206,13 @@ def test_align_exact_raises():
 
 
 def test_labeled_above_cap_scatter_route():
-    """Labeled joint call whose grid exceeds the full-reduction slot caps:
-    the XLA scatter fallback runs inside the cached labeled pipeline and
-    matches the numpy oracle (r3 scatter-fallback revision)."""
+    """Labeled weighted joint call over a 532k-slot grid runs inside the
+    cached labeled pipeline and matches the numpy oracle."""
     rng = np.random.RandomState(50)
     a = NamedArray(rng.randn(6, 500).astype("f4"), ("t", "x"), name="a")
     b = NamedArray(rng.randn(6, 500).astype("f4"), ("t", "x"), name="b")
     ea = np.linspace(-4, 4, 1025)
-    eb = np.linspace(-4, 4, 521)  # 1024x520 = 532k slots: above both caps
-    from xhistogram_tpu.ops import pallas_hist as ph
-
-    assert ph.plan(2, (1024, 520), 1, weighted=True) is None
+    eb = np.linspace(-4, 4, 521)  # 1024x520 = 532k slots
     w = NamedArray(rng.rand(6, 500).astype("f4"), ("t", "x"))
     h = histogram(a, b, bins=[ea, eb], weights=w)
     exp = np.histogram2d(

@@ -138,9 +138,9 @@ def test_cache_x64_preserves_float64():
 
 
 def test_cache_precision_in_key():
-    """Per-call precision= must fork the pipeline cache (and deliver each
-    mode's numerics): same shapes + edges, different precision, back to
-    back."""
+    """precision='f64' bypasses the pipeline cache (the exact tier runs on
+    the host and returns float64); the default precision is cached and
+    both deliver one weight per slot bit for bit."""
     api._PIPELINE_CACHE.clear()
     edges = np.linspace(-4, 4, 1025)
     centers = (0.5 * (edges[:-1] + edges[1:])).astype("f4")
@@ -148,13 +148,13 @@ def test_cache_precision_in_key():
     w = rng.uniform(0.5, 2.0, size=centers.shape).astype("f4")
     a = NamedArray(centers, ("x",), name="T")
     wa = NamedArray(w, ("x",))
-    h_hi = histogram(a, bins=edges, weights=wa, method="pallas",
-                     precision="highest")
-    h_sp = histogram(a, bins=edges, weights=wa, method="pallas",
-                     precision="split")
-    assert len(api._PIPELINE_CACHE) == 2
-    np.testing.assert_array_equal(np.asarray(h_hi.values), w)
-    assert not np.array_equal(np.asarray(h_sp.values), w)
+    h_f64 = histogram(a, bins=edges, weights=wa, precision="f64")
+    assert len(api._PIPELINE_CACHE) == 0
+    h_def = histogram(a, bins=edges, weights=wa)
+    assert len(api._PIPELINE_CACHE) == 1
+    assert np.asarray(h_f64.values).dtype == np.float64
+    np.testing.assert_array_equal(np.asarray(h_f64.values), w)
+    np.testing.assert_array_equal(np.asarray(h_def.values), w)
 
 
 def test_cache_int_weights_digit_mode():

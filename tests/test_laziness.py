@@ -34,7 +34,7 @@ def test_eval_shape_no_compute():
 
 
 def test_eval_shape_density_and_methods():
-    for method in ("scatter", "onehot", "sort", "pallas"):
+    for method in ("scatter", "onehot", "sort", "auto"):
         out = jax.eval_shape(
             lambda x: histogram(x, bins=bins_arr, density=True, method=method)[0],
             jax.ShapeDtypeStruct((4, 50), jnp.float32),

@@ -4,8 +4,8 @@ The reference's inner kernel is ``np.bincount(idx, weights=w)`` (reference
 core.py:81): a NaN/±inf weight lands in its element's bin ONLY. Matmul /
 einsum / prefix-sum reformulations would poison whole rows (NaN·0 = NaN,
 inf - inf = NaN); ops/nonfinite.py restores scatter semantics. These tests
-pin that contract for scatter, onehot, sort, and every Pallas kernel
-(one_input / joint2 / factored / direct / per-row factored).
+pin that contract for scatter, onehot, sort and auto, over one- to
+three-input shapes.
 """
 
 import numpy as np
@@ -13,7 +13,7 @@ import pytest
 
 from xhistogram_tpu.core import histogram
 
-METHODS = ["scatter", "onehot", "sort", "pallas"]
+METHODS = ["scatter", "onehot", "sort", "auto"]
 
 
 def oracle_1d(data, edges, w):
@@ -102,8 +102,10 @@ def test_nonfinite_out_of_range_weight_ignored(method):
     assert_structure_equal(h, expected)
 
 
-def test_nonfinite_joint2_kernel():
-    """2-input full reduction → joint2 kernel (bin-membership matmul)."""
+@pytest.mark.parametrize("method", METHODS)
+def test_nonfinite_joint2_kernel(method):
+    """2-input full reduction: a NaN and an inf weight stay in their own
+    joint bins."""
     rng = np.random.RandomState(2)
     a = rng.uniform(-3.5, 3.5, size=(4, 50)).astype("f4")
     b = rng.uniform(-3.5, 3.5, size=(4, 50)).astype("f4")
@@ -112,7 +114,7 @@ def test_nonfinite_joint2_kernel():
     a[1, 1], b[1, 1], w[1, 1] = -1.0, 1.0, np.inf
     edges_a = np.linspace(-4, 4, 9)
     edges_b = np.linspace(-4, 4, 12)
-    h, _ = histogram(a, b, bins=[edges_a, edges_b], weights=w, method="pallas")
+    h, _ = histogram(a, b, bins=[edges_a, edges_b], weights=w, method=method)
     # oracle over the flattened joint grid
     ia = np.clip(np.searchsorted(edges_a, a.ravel(), "right") - 1, -1, 8)
     ib = np.clip(np.searchsorted(edges_b, b.ravel(), "right") - 1, -1, 11)
@@ -123,15 +125,16 @@ def test_nonfinite_joint2_kernel():
     assert_structure_equal(h, expected)
 
 
-def test_nonfinite_factored_kernel():
-    """3-input full reduction with a big joint grid → factored kernel."""
+@pytest.mark.parametrize("method", METHODS)
+def test_nonfinite_factored_kernel(method):
+    """3-input full reduction with a 35,840-slot joint grid."""
     rng = np.random.RandomState(3)
     data = [rng.uniform(-3.5, 3.5, size=1000).astype("f4") for _ in range(3)]
     w = rng.rand(1000).astype("f4")
     data[0][0], data[1][0], data[2][0] = 0.1, 0.1, 0.1
     w[0] = np.nan
     bins = [np.linspace(-4, 4, n) for n in (33, 41, 29)]
-    h, _ = histogram(*data, bins=bins, weights=w, method="pallas")
+    h, _ = histogram(*data, bins=bins, weights=w, method=method)
     h = np.asarray(h)
     # exactly one joint bin got the NaN
     assert np.isnan(h).sum() == 1

@@ -1,230 +1,95 @@
-"""Weighted-sum precision: split-bf16 vs exact-f32 ('highest') modes, and
-the Kahan-compensated cross-tile accumulation that ships with highest mode
-(reference parity note: numpy accumulates weighted histograms in f64;
-highest+Kahan gets f32 totals to O(1) ulp of the f64 result)."""
+"""Weighted-sum precision of the counting strategies, and the accepted
+``precision=`` / ``method=`` values.
 
+Float weights accumulate in f32 under every strategy (numpy accumulates in
+float64); ``precision='f64'`` is the exact tier (tests/test_f64_weights.py).
+A slot holding ONE weight must come back bit for bit under every strategy:
+nothing may round the weights themselves (a TF32 contraction would, and the
+sort strategy's sums must not difference a global prefix sum).
+"""
+
+import jax
 import numpy as np
 import pytest
+from jax.sharding import Mesh, PartitionSpec as P
 
-import jax.numpy as jnp
-
+from xhistogram_tpu import StreamingHistogram
 from xhistogram_tpu.core import histogram
-from xhistogram_tpu.ops import pallas_hist as ph
+from xhistogram_tpu.labeled import NamedArray
+from xhistogram_tpu.labeled import histogram as lhist
+from xhistogram_tpu.parallel import histogram_sharded
+
+METHODS = ("scatter", "onehot", "sort")
 
 
-def test_kahan_formula_beats_naive_accumulation():
-    """Simulate the kernel's cross-tile accumulation: thousands of f32 tile
-    partials whose naive running sum drifts; the _kahan_add recurrence must
-    track the f64 truth to ~1 ulp."""
-    partials = np.full(4096, 1024.125, dtype=np.float32)
-    true = float(np.sum(partials.astype(np.float64)))
-
-    naive = np.float32(0.0)
-    for p in partials:
-        naive = np.float32(naive + p)
-
-    class Ref:
-        def __init__(self, v):
-            self.v = jnp.asarray(v)
-
-        def __getitem__(self, k):
-            return self.v
-
-        def __setitem__(self, k, v):
-            self.v = v
-
-    o, c = Ref(np.float32(0.0)), Ref(np.float32(0.0))
-    for p in partials:
-        ph._kahan_add(o, c, jnp.float32(p))
-    kahan = float(o.v - c.v)
-
-    err_naive = abs(float(naive) - true)
-    err_kahan = abs(kahan - true)
-    assert err_kahan <= max(1e-1, err_naive / 100), (err_kahan, err_naive)
-    assert err_kahan < 0.26  # ~1 ulp at 4.2e6
-
-
-def test_highest_mode_weighted_end_to_end(monkeypatch):
-    """highest mode (exact f32 matmuls + Kahan) matches the f64 numpy
-    oracle much tighter than split mode's ~17-bit weight representation."""
-    import jax
-
-    jax.clear_caches()  # mode globals aren't part of the jit key
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "highest")
-    monkeypatch.setattr(ph, "_MAX_TC", 256)  # force many accumulation steps
-    rng = np.random.RandomState(0)
-    data = rng.uniform(-3.5, 3.5, size=(8, 4096)).astype("f4")
-    w = (rng.rand(8, 4096) * 100).astype("f4")
-    edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    expected = np.histogram(data.ravel(), bins=edges,
-                            weights=w.ravel().astype("f8"))[0]
-    np.testing.assert_allclose(np.asarray(h)[: 9], expected, rtol=3e-7)
-
-
-def test_highest_three_limb_decomposition_exact():
-    """The 'highest' kernel represents each f32 weight as three bf16 limbs;
-    hi + mid + lo must reconstruct the weight BIT-exactly (the residual
-    subtractions are error-free and the final residual fits bf16's 8-bit
-    mantissa) for the full range of normal f32 values."""
-    rng = np.random.RandomState(7)
-    # full 24-bit mantissas across a wide exponent range, plus specials —
-    # including finite f32 values ABOVE bf16's max normal, where a plain
-    # bf16 cast rounds to inf and only the clamped hi limb stays exact
-    fmax = np.finfo(np.float32).max
-    m = rng.randint(1 << 23, 1 << 24, size=4096).astype(np.float32)
-    e = np.ldexp(1.0, rng.randint(-100, 100, size=4096)).astype(np.float32)
-    w = np.concatenate(
-        [m * e * np.where(rng.rand(4096) < 0.5, -1, 1).astype(np.float32),
-         np.array([0.0, -0.0, 1.0, np.float32(2**-126),
-                   fmax, -fmax, np.nextafter(fmax, 0, dtype=np.float32),
-                   np.float32(3.395e38)], dtype=np.float32)]
-    )
-    wf = jnp.asarray(w)
-    hi = ph._bf16_hi(wf)
-    r1 = wf - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    # hi + (mid + lo): mid+lo equals the hi-residual exactly, so this
-    # order reconstructs w without the 2^128 overflow (hi+mid)+lo hits at
-    # w = f32_max — the same order the kernel accumulates
-    back = hi.astype(jnp.float32) + (
-        mid.astype(jnp.float32) + lo.astype(jnp.float32)
-    )
-    np.testing.assert_array_equal(np.asarray(back), w)
-
-
-def test_highest_mode_bit_exact_single_weight_per_bin(monkeypatch):
-    """One element per bin ⇒ every output slot is a SINGLE weight, so the
-    result must be BIT-exact in 'highest' mode (per-weight-exact three-limb
-    bf16 representation; no accumulation rounding can enter). Split mode's
-    ~17-bit representation demonstrably differs on the same inputs."""
-    import jax
-
+@pytest.mark.parametrize("method", METHODS)
+def test_single_weight_per_bin_bit_exact(method):
+    """One element per bin: every output slot is a single full-mantissa
+    weight, so the result must equal the weights bit for bit."""
     edges = np.linspace(-4, 4, 1025)
     centers = 0.5 * (edges[:-1] + edges[1:])
     data = centers.astype("f4").reshape(1, -1)
     rng = np.random.RandomState(11)
     w = rng.uniform(0.5, 2.0, size=data.shape).astype("f4")
-
-    jax.clear_caches()
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "highest")
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
+    h, _ = histogram(data, bins=edges, weights=w, method=method)
     np.testing.assert_array_equal(np.asarray(h), w.ravel())
 
-    jax.clear_caches()
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "split")
-    h2, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    assert not np.array_equal(np.asarray(h2), w.ravel())
 
-
-def test_default_mode_documented_tolerance():
-    """The default mode is split (~17-bit weight representation, relative
-    ~4e-6 per weight); generic weights must meet its tolerance."""
-    import jax
-
-    jax.clear_caches()  # don't inherit a monkeypatched-mode trace
-    assert ph._WEIGHTED_MODE == "split"
-    rng = np.random.RandomState(1)
+@pytest.mark.parametrize("method", METHODS)
+def test_weighted_end_to_end_f32_tolerance(method):
+    """~1800 f32 weights per bin against numpy's float64 sums: the f32
+    accumulation error stays within a few ulp of the bin total."""
+    rng = np.random.RandomState(0)
     data = rng.uniform(-3.5, 3.5, size=(8, 2048)).astype("f4")
-    w = rng.rand(8, 2048).astype("f4")
+    w = (rng.rand(8, 2048) * 100).astype("f4")
     edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
+    h, _ = histogram(data, bins=edges, weights=w, method=method)
     expected = np.histogram(data.ravel(), bins=edges,
                             weights=w.ravel().astype("f8"))[0]
     np.testing.assert_allclose(np.asarray(h), expected, rtol=1e-5)
 
 
-def test_i8_mode_weighted_end_to_end(monkeypatch):
-    """i8 mode (two per-tile-scaled int8 limbs, int8-rate matmuls): error is
-    ABSOLUTE, ~3e-5 x the tile's max |weight| — check against the f64
-    oracle at that tolerance, plus nonfinite-weight faithfulness."""
-    import jax
-
-    jax.clear_caches()  # an identically-shaped split-mode trace would be
-    # served from the jit cache otherwise (mode globals aren't in the key)
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "i8")
-    rng = np.random.RandomState(2)
-    data = rng.uniform(-3.5, 3.5, size=(8, 2048)).astype("f4")
-    w = (rng.rand(8, 2048) * 10).astype("f4")
-    edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    expected = np.histogram(data.ravel(), bins=edges,
-                            weights=w.ravel().astype("f8"))[0]
-    np.testing.assert_allclose(
-        np.asarray(h), expected,
-        atol=3e-5 * 10 * 2048 * 8 / 9, rtol=1e-3,
-    )
-    # faithful nonfinite weights still isolate the poisoned bin
-    w2 = w.copy()
-    w2[0, 0] = np.nan
-    data[0, 0] = 0.1
-    h2, _ = histogram(data, bins=edges, weights=w2, method="pallas")
-    h2 = np.asarray(h2)
-    assert np.isnan(h2).sum() == 1
-
-
-def test_i8_mode_kept_rows_and_joint(monkeypatch):
-    import jax
-
-    jax.clear_caches()
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "i8")
+@pytest.mark.parametrize("method", METHODS)
+def test_weighted_kept_rows_and_joint(method):
     rng = np.random.RandomState(3)
     a = rng.uniform(-3.5, 3.5, size=(4, 600)).astype("f4")
     b = rng.uniform(-3.5, 3.5, size=(4, 600)).astype("f4")
     w = rng.rand(4, 600).astype("f4")
     ea, eb = np.linspace(-4, 4, 7), np.linspace(-4, 4, 9)
-    h, _ = histogram(a, b, bins=[ea, eb], weights=w, axis=1,
-                     method="pallas")
+    h, _ = histogram(a, b, bins=[ea, eb], weights=w, axis=1, method=method)
     for r in range(4):
         expected, _, _ = np.histogram2d(
             a[r], b[r], bins=[ea, eb], weights=w[r].astype("f8")
         )
-        np.testing.assert_allclose(
-            np.asarray(h)[r], expected, atol=3e-5 * 600, rtol=1e-3
-        )
+        np.testing.assert_allclose(np.asarray(h)[r], expected, rtol=1e-5)
 
 
-def test_split_mode_documented_tolerance(monkeypatch):
-    import jax
-
-    jax.clear_caches()
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "split")
-    rng = np.random.RandomState(1)
-    data = rng.uniform(-3.5, 3.5, size=(8, 2048)).astype("f4")
-    w = rng.rand(8, 2048).astype("f4")
-    edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    expected = np.histogram(data.ravel(), bins=edges,
-                            weights=w.ravel().astype("f8"))[0]
-    np.testing.assert_allclose(np.asarray(h), expected, rtol=1e-5)
+@pytest.mark.parametrize("method", METHODS)
+def test_huge_finite_weights_stay_exact(method):
+    """Finite weights up to f32's max survive every strategy unchanged."""
+    fmax = np.finfo(np.float32).max
+    edges = np.linspace(-4, 4, 9)
+    centers = (0.5 * (edges[:-1] + edges[1:])).astype("f4").reshape(1, -1)
+    w = np.full(centers.shape, 1.0, "f4")
+    w[0, 2] = fmax
+    w[0, 5] = np.float32(3.4e38)
+    h, _ = histogram(centers, bins=edges, weights=w, method=method)
+    np.testing.assert_array_equal(np.asarray(h), w.ravel())
 
 
-def test_per_call_precision_kwarg():
-    """precision= selects the weighted mode per call (no env/global flips,
-    no stale-cache hits: the mode is a static jit argument). 'highest' on a
-    one-element-per-bin layout is bit-exact; 'split' on the same inputs is
-    not; both called back-to-back must each behave per their own mode."""
-    assert ph._WEIGHTED_MODE == "split"
-    edges = np.linspace(-4, 4, 1025)
-    centers = 0.5 * (edges[:-1] + edges[1:])
-    data = centers.astype("f4").reshape(1, -1)
-    rng = np.random.RandomState(21)
-    w = rng.uniform(0.5, 2.0, size=data.shape).astype("f4")
-
-    h_hi, _ = histogram(data, bins=edges, weights=w, method="pallas",
-                        precision="highest")
-    h_sp, _ = histogram(data, bins=edges, weights=w, method="pallas",
-                        precision="split")
-    h_default, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    np.testing.assert_array_equal(np.asarray(h_hi), w.ravel())
-    assert not np.array_equal(np.asarray(h_sp), w.ravel())
-    np.testing.assert_array_equal(np.asarray(h_default), np.asarray(h_sp))
-    # and again in the other order — per-call modes must not leak through
-    # any cache
-    h_hi2, _ = histogram(data, bins=edges, weights=w, method="pallas",
-                         precision="highest")
-    np.testing.assert_array_equal(np.asarray(h_hi2), w.ravel())
+@pytest.mark.parametrize("method", ["onehot", "sort"])
+def test_fixed_order_strategies_repeat_bit_for_bit(method):
+    """onehot and sort add weights in an order fixed by the shape."""
+    rng = np.random.RandomState(4)
+    data = rng.randn(3, 5000).astype("f4")
+    w = rng.rand(3, 5000).astype("f4")
+    edges = np.linspace(-3, 3, 31)
+    runs = [
+        np.asarray(histogram(data, bins=edges, weights=w, axis=1,
+                             method=method)[0])
+        for _ in range(2)
+    ]
+    np.testing.assert_array_equal(runs[0], runs[1])
 
 
 def test_per_call_precision_invalid():
@@ -235,39 +100,6 @@ def test_per_call_precision_invalid():
                   precision="exact")
 
 
-def test_per_call_precision_i8_bound():
-    rng = np.random.RandomState(5)
-    data = rng.uniform(-3.5, 3.5, size=(8, 2048)).astype("f4")
-    w = (rng.rand(8, 2048) * 10).astype("f4")
-    edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas",
-                     precision="i8")
-    expected = np.histogram(data.ravel(), bins=edges,
-                            weights=w.ravel().astype("f8"))[0]
-    np.testing.assert_allclose(
-        np.asarray(h), expected, atol=3e-5 * 10 * 2048 * 8 / 9, rtol=1e-3
-    )
-
-
-def test_i8x3_mode_precision_bound(monkeypatch):
-    """Explicit i8x3: per-weight error <= ~2.4e-7 x max|tile weight|."""
-    import jax
-
-    jax.clear_caches()
-    monkeypatch.setattr(ph, "_WEIGHTED_MODE", "i8x3")
-    rng = np.random.RandomState(8)
-    data = rng.uniform(-3.5, 3.5, size=(8, 2048)).astype("f4")
-    w = (rng.rand(8, 2048) * 10).astype("f4")
-    edges = np.linspace(-4, 4, 10)
-    h, _ = histogram(data, bins=edges, weights=w, method="pallas")
-    expected = np.histogram(data.ravel(), bins=edges,
-                            weights=w.ravel().astype("f8"))[0]
-    np.testing.assert_allclose(
-        np.asarray(h), expected,
-        atol=2.4e-7 * 10 * 2048 * 8 / 9, rtol=1e-5,
-    )
-
-
 def test_precision_empty_string_rejected():
     data = np.zeros((2, 8), "f4")
     w = np.ones((2, 8), "f4")
@@ -276,18 +108,15 @@ def test_precision_empty_string_rejected():
 
 
 def test_unweighted_precision_does_not_fork_cache():
-    """precision= is mode-independent without weights: it must normalize
-    away before becoming a static jit arg (each distinct static value would
-    retrace an identical pipeline — ~30-60 s on the remote-compile path)."""
-    import jax
-
+    """precision= is meaningless without weights: it must normalize away
+    before it could become part of a jit key."""
     from xhistogram_tpu.core import _histogram_impl
 
     data = np.random.RandomState(0).randn(4, 64).astype("f4")
     edges = np.linspace(-3, 3, 9)
     h0, _ = histogram(data, bins=edges)
     n0 = _histogram_impl._cache_size()
-    h1, _ = histogram(data, bins=edges, precision="highest")
+    h1, _ = histogram(data, bins=edges, precision="f64")
     assert _histogram_impl._cache_size() == n0  # same trace reused
     np.testing.assert_array_equal(np.asarray(h0), np.asarray(h1))
     # still validated eagerly even though ignored
@@ -296,83 +125,41 @@ def test_unweighted_precision_does_not_fork_cache():
 
 
 def test_streaming_precision_validated_at_init():
-    from xhistogram_tpu import StreamingHistogram
-
     with pytest.raises(ValueError, match="precision"):
         StreamingHistogram([np.linspace(-1, 1, 5)], precision="exact")
 
 
-@pytest.mark.parametrize(
-    "case",
-    ["joint2", "per_row", "packed", "direct"],
-)
-def test_highest_mode_across_kernel_families(case):
-    """The three-limb highest matmul runs inside every weighted kernel
-    family (the lhs/rhs one-hot shapes differ per kernel); each must meet
-    the near-f64 tolerance on its canonical shape."""
-    rng = np.random.RandomState(17)
-    if case == "joint2":
-        a, b = rng.randn(2, 5000).astype("f4"), rng.randn(2, 5000).astype("f4")
-        w = rng.rand(2, 5000).astype("f4")
-        ea, eb = np.linspace(-4, 4, 281), np.linspace(-4, 4, 341)
-        h, _ = histogram(a, b, bins=[ea, eb], weights=w, method="pallas",
-                         precision="highest")
-        exp, _, _ = np.histogram2d(a.ravel(), b.ravel(), bins=[ea, eb],
-                                   weights=w.ravel().astype("f8"))
-        np.testing.assert_allclose(np.asarray(h), exp, rtol=3e-7, atol=1e-6)
-    elif case == "per_row":
-        a, b = rng.randn(5, 2000).astype("f4"), rng.randn(5, 2000).astype("f4")
-        w = rng.rand(5, 2000).astype("f4")
-        ea, eb = np.linspace(-4, 4, 151), np.linspace(-4, 4, 91)
-        h, _ = histogram(a, b, bins=[ea, eb], weights=w, axis=(1,),
-                         method="pallas", precision="highest")
-        for r in range(5):
-            exp, _, _ = np.histogram2d(a[r], b[r], bins=[ea, eb],
-                                       weights=w[r].astype("f8"))
-            np.testing.assert_allclose(np.asarray(h)[r], exp, rtol=3e-7,
-                                       atol=1e-6)
-    elif case == "packed":
-        a = rng.randn(9, 100).astype("f4")
-        w = rng.rand(9, 100).astype("f4")
-        e = np.linspace(-4, 4, 10001)
-        h, _ = histogram(a, bins=e, weights=w, axis=(1,), method="pallas",
-                         precision="highest")
-        for r in range(9):
-            exp = np.histogram(a[r], bins=e, weights=w[r].astype("f8"))[0]
-            np.testing.assert_allclose(np.asarray(h)[r], exp, rtol=3e-7,
-                                       atol=1e-6)
-    else:  # direct
-        a, b = rng.randn(16, 64).astype("f4"), rng.randn(16, 64).astype("f4")
-        w = rng.rand(16, 64).astype("f4")
-        ea = np.linspace(-4, 4, 41)
-        h, _ = histogram(a, b, bins=[ea, ea], weights=w, axis=(1,),
-                         method="pallas", precision="highest")
-        for r in range(16):
-            exp, _, _ = np.histogram2d(a[r], b[r], bins=[ea, ea],
-                                       weights=w[r].astype("f8"))
-            np.testing.assert_allclose(np.asarray(h)[r], exp, rtol=3e-7,
-                                       atol=1e-6)
+def _call_entry(entry, **kw):
+    data = np.linspace(-0.9, 0.9, 16).astype("f4").reshape(2, 8)
+    w = np.ones((2, 8), "f4")
+    edges = np.linspace(-1, 1, 5)
+    if entry == "core":
+        return histogram(data, bins=edges, weights=w, **kw)
+    if entry == "sharded":
+        mesh = Mesh(np.array(jax.devices()[:2]), ("x",))
+        return histogram_sharded(data, mesh=mesh, in_spec=P("x"),
+                                 bins=edges, weights=w, **kw)
+    if entry == "labeled":
+        a = NamedArray(data, ("y", "x"), name="a")
+        return lhist(a, bins=[edges], weights=NamedArray(w, ("y", "x")),
+                     **kw)
+    return StreamingHistogram([edges], **kw)
 
 
-def test_huge_finite_weights_survive_bf16_limbs():
-    """Finite f32 weights above bf16's max normal (≈3.3895e38) used to
-    round to inf in the hi-limb cast, turning the residual into -inf and
-    poisoning whole tiles in BOTH split and highest modes. The clamped hi
-    limb keeps them finite and (in highest mode) exact."""
-    fmax = np.finfo(np.float32).max
-    edges = np.linspace(-4, 4, 9)
-    centers = (0.5 * (edges[:-1] + edges[1:])).astype("f4").reshape(1, -1)
-    w = np.full(centers.shape, 1.0, "f4")
-    w[0, 2] = fmax
-    w[0, 5] = np.float32(3.4e38)
+ENTRIES = ["core", "sharded", "labeled", "streaming"]
 
-    h_hi, _ = histogram(centers, bins=edges, weights=w, method="pallas",
-                        precision="highest")
-    np.testing.assert_array_equal(np.asarray(h_hi), w.ravel())
 
-    h_sp, _ = histogram(centers, bins=edges, weights=w, method="pallas",
-                        precision="split")
-    got = np.asarray(h_sp)
-    assert np.isfinite(got).all()
-    # the lo-limb overflow clamp costs up to ~1.6e-5 relative AT f32_max
-    np.testing.assert_allclose(got, w.ravel(), rtol=2e-5)
+@pytest.mark.parametrize("mode", ["split", "highest", "i8", "i8x3"])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_removed_precision_modes_raise(entry, mode):
+    """The kernel-only weighted modes are gone; every entry point names the
+    accepted values."""
+    with pytest.raises(ValueError, match="valid values are None .* 'f64'"):
+        _call_entry(entry, precision=mode)
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_method_pallas_raises(entry):
+    """method='pallas' is gone; the error lists the accepted methods."""
+    with pytest.raises(ValueError, match="auto\\|scatter\\|onehot\\|sort"):
+        _call_entry(entry, method="pallas")

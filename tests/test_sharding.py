@@ -1,7 +1,7 @@
 """Multi-device tests on an 8-device virtual CPU mesh.
 
-The TPU-native replacement for the reference's chunking suites
-(/root/reference/xhistogram/test/test_chunking.py and
+The replacement for the reference's chunking suites
+(the reference's test/test_chunking.py and
 test_chunking_hypotheses.py): instead of dask chunk grids, data is laid out
 over a ``jax.sharding.Mesh``; partial per-device histograms must combine (via
 psum inside shard_map, or GSPMD-inserted collectives) to the bit-exact
@@ -137,10 +137,10 @@ def test_all_sharding_layouts_1d(layout):
     np.testing.assert_array_equal(np.asarray(h), np.histogram(data, bins=bins)[0])
 
 
-@pytest.mark.parametrize("method", ["pallas", "scatter"])
-def test_sharded_with_pallas_kernel(method):
-    """The full multichip composition: per-device Pallas kernel inside
-    shard_map + psum (the production TPU path)."""
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort", "auto"])
+def test_sharded_every_method(method):
+    """The full multi-device composition: each counting strategy per device
+    inside shard_map + psum."""
     rng = np.random.RandomState(6)
     T = rng.randn(8, 512).astype("f4")
     S = rng.randn(8, 512).astype("f4")
@@ -155,13 +155,12 @@ def test_sharded_with_pallas_kernel(method):
 
 
 def test_sharded_kept_rows_large_grid_per_row_factored():
-    """Kept rows + a joint grid past the direct kernel's slot cap: each
-    device's local shard routes through the per-row factored kernel inside
-    shard_map; psum over the reduced mesh axis must still be bit-exact."""
+    """Kept rows + a 9,600-slot joint grid inside shard_map; psum over the
+    reduced mesh axis must still be bit-exact."""
     rng = np.random.RandomState(7)
     a = rng.randn(8, 1024).astype("f4")
     b = rng.randn(8, 1024).astype("f4")
-    bins_a = np.linspace(-4, 4, 121)   # 120 x 80 = 9600 slots > 8192
+    bins_a = np.linspace(-4, 4, 121)   # 120 x 80 = 9600 slots
     bins_b = np.linspace(-4, 4, 81)
     mesh = mesh2d()
     h, _ = histogram_sharded(
@@ -213,7 +212,7 @@ def test_labeled_api_on_sharded_data_gspmd():
 # --------------------------------------------------------------------------
 # mismatched input shardings under the implicit GSPMD path (r3, VERDICT #6):
 # the reference rechunks unaligned dask chunks onto a common grid
-# (reference test_chunking.py:104-146); the TPU analog is XLA resharding
+# (reference test_chunking.py:104-146); the JAX analog is XLA resharding
 # the operands onto one sharding on-device. SURVEY §5 claims the
 # equivalence — these tests exercise it.
 
@@ -289,14 +288,14 @@ def test_gspmd_mismatch_resharded_on_device():
 
 def test_sharded_uniform_certified_bins():
     """The uniform-digitize certificate flows through histogram_sharded's
-    static args into the shard_map'd kernels (r3): certified many-bin
-    grids must stay exact across the mesh."""
+    static args into the shard_map'd digitize: certified many-bin grids
+    must stay exact across the mesh."""
     rng = np.random.RandomState(30)
     data = rng.rand(8, 4096).astype("f4")
     edges = np.linspace(0, 1, 4097)  # d = 2^-12: certified
     mesh = mesh2d()
     h, _ = histogram_sharded(
-        data, mesh=mesh, in_spec=P("x", "y"), bins=edges, method="pallas"
+        data, mesh=mesh, in_spec=P("x", "y"), bins=edges
     )
     np.testing.assert_array_equal(
         np.asarray(h), np.histogram(data.astype("f8"), bins=edges)[0]
@@ -304,7 +303,7 @@ def test_sharded_uniform_certified_bins():
     # kept axis sharded + reduced axis psum, uniform certified
     h, _ = histogram_sharded(
         data, mesh=mesh, in_spec=P("x", "y"), bins=edges, axis=(1,),
-        method="pallas",
+        method="onehot",
     )
     exp = np.stack(
         [np.histogram(r.astype("f8"), bins=edges)[0] for r in data]
@@ -312,44 +311,39 @@ def test_sharded_uniform_certified_bins():
     np.testing.assert_array_equal(np.asarray(h), exp)
 
 
-def test_sharded_unconsumed_certificates_share_one_trace():
-    """The jit-cache-key reduction (core._uniform_static_key) applies to
-    histogram_sharded too: same-shaped calls over different certified grids
-    whose routed kernel never reads the certificate values must share ONE
-    _sharded_impl trace (routing is mirrored on the PER-SHARD shape)."""
+def test_sharded_unconsumed_certificates_share_one_trace(monkeypatch):
+    """Certificate values are traced operands in histogram_sharded too:
+    same-shaped calls over different certified grids share ONE
+    _sharded_impl trace, with the uniform digitize on or off."""
+    from xhistogram_tpu.ops import digitize as dg
     from xhistogram_tpu.parallel.sharded import _sharded_impl
 
     rng = np.random.RandomState(31)
     data = rng.randn(8, 256).astype("f4")
     mesh = mesh2d()
-    before = _sharded_impl._cache_size()
-    for hw in (4.0, 8.0, 16.0):
-        edges = np.linspace(-hw, hw, 33)  # pow-2 spacings: arith certified
-        h, _ = histogram_sharded(
-            data, mesh=mesh, in_spec=P("x", "y"), bins=edges,
-            method="pallas",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(h), np.histogram(data.astype("f8"), bins=edges)[0]
-        )
-    assert _sharded_impl._cache_size() - before == 1
+    for on in (True, False):
+        monkeypatch.setattr(dg, "UNIFORM_DIGITIZE", on)
+        before = _sharded_impl._cache_size()
+        for hw in (4.0, 8.0, 16.0):
+            edges = np.linspace(-hw, hw, 33)  # pow-2 spacings: certified
+            h, _ = histogram_sharded(
+                data, mesh=mesh, in_spec=P("x", "y"), bins=edges,
+            )
+            np.testing.assert_array_equal(
+                np.asarray(h), np.histogram(data.astype("f8"), bins=edges)[0]
+            )
+        assert _sharded_impl._cache_size() - before == 1
 
 
 def test_sharded_above_cap_scatter_route():
-    """Joint grids above the full-reduction slot caps route to the XLA
-    scatter fallback INSIDE the shard_map body; partials + psum must still
-    match the numpy oracle (r3 scatter-fallback revision)."""
+    """A 532k-slot weighted joint grid: the per-device partials + psum must
+    match the numpy oracle."""
     rng = np.random.RandomState(33)
     a = rng.randn(8, 1024).astype("f4")
     b = rng.randn(8, 1024).astype("f4")
     w = rng.rand(8, 1024).astype("f4")
-    # 1024x520 weighted = 532k slots > 2^18 (and past the joint2 gate):
-    # above the weighted full-reduction cap
     ea = np.linspace(-4, 4, 1025)
     eb = np.linspace(-4, 4, 521)
-    from xhistogram_tpu.ops import pallas_hist as ph
-
-    assert ph.plan(2, (1024, 520), 1, weighted=True) is None
     mesh = mesh2d()
     h, _ = histogram_sharded(
         a, b, mesh=mesh, in_spec=P("x", "y"), bins=[ea, eb], weights=w
@@ -361,10 +355,10 @@ def test_sharded_above_cap_scatter_route():
     np.testing.assert_allclose(np.asarray(h), exp, rtol=1e-4)
 
 
-def test_sharded_precision_kwarg():
-    """precision= threads through shard_map: 'highest' on a
-    one-element-per-bin layout (each device holds a kept-rows slice) is
-    bit-exact per weight."""
+@pytest.mark.parametrize("method", ["scatter", "onehot", "sort"])
+def test_sharded_precision_kwarg(method):
+    """Weighted sums through shard_map: a one-element-per-bin layout (each
+    device holds a kept-rows slice) is bit-exact per weight."""
     edges = np.linspace(-4, 4, 257)
     centers = (0.5 * (edges[:-1] + edges[1:])).astype("f4")
     data = np.tile(centers, (8, 1))
@@ -374,15 +368,9 @@ def test_sharded_precision_kwarg():
 
     h, _ = histogram_sharded(
         data, mesh=mesh, in_spec=P("r", None), bins=edges, axis=(1,),
-        weights=w, method="pallas", precision="highest",
+        weights=w, method=method,
     )
     np.testing.assert_array_equal(np.asarray(h), w)
-
-    h_sp, _ = histogram_sharded(
-        data, mesh=mesh, in_spec=P("r", None), bins=edges, axis=(1,),
-        weights=w, method="pallas", precision="split",
-    )
-    assert not np.array_equal(np.asarray(h_sp), w)
 
 
 class TestShardedWideCounts:
@@ -541,9 +529,9 @@ def test_sharded_broadcast_scalar_like_weights_kept_axis():
 
 
 # ---------------------------------------------------------------------------
-# implicit-path delegation (VERDICT r3 #5/#7): eager calls on mesh-sharded
-# arrays must take the shard_map path (GSPMD has no partitioning rule for
-# the pallas custom call and would all-gather on a real mesh)
+# implicit-path delegation: eager calls on mesh-sharded arrays take the
+# shard_map path (one per-device count + one psum, independent of the
+# partitioner's choices)
 
 
 def test_eager_sharded_call_delegates_to_shard_map(monkeypatch):
@@ -607,8 +595,7 @@ def test_replicated_and_single_device_arrays_do_not_delegate(monkeypatch):
 
 def test_traced_sharded_caller_keeps_gspmd(monkeypatch):
     """Inside a USER jit the inputs are tracers: no delegation — the XLA
-    strategies partition via GSPMD (parity pinned here; the pallas-call
-    gather caveat is documented in parallel.sharded's docstring)."""
+    strategies partition via GSPMD (parity pinned here)."""
     import xhistogram_tpu.parallel as par
 
     def boom(*a, **k):  # pragma: no cover - failure path

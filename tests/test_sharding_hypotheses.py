@@ -1,6 +1,6 @@
 """Property-based sharding tests.
 
-The TPU analog of the reference's hypothesis-over-chunkings suite
+The JAX analog of the reference's hypothesis-over-chunkings suite
 (/root/reference/xhistogram/test/test_chunking_hypotheses.py): instead of
 generating arbitrary dask chunk tuples, generate arbitrary mesh shapes and
 input layouts over 8 virtual devices; every layout must reproduce the

@@ -1,6 +1,6 @@
-"""xhistogram_tpu: TPU-native N-dimensional, axis-selective histograms.
+"""xhistogram_tpu: N-dimensional, axis-selective histograms on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of xgcm/xhistogram
+A from-scratch JAX/XLA rebuild of the capabilities of xgcm/xhistogram
 (reference: /root/reference/xhistogram): weighted, optionally density-normalized
 joint histograms over chosen axes of N input arrays, preserving the remaining
 ("bystander") axes, with a labeled (named-dimension) wrapper and multi-chip
@@ -11,9 +11,9 @@ Public layers (mirrors the reference layer map, SURVEY.md §1):
   - ``xhistogram_tpu.labeled.histogram``    — labeled API (reference xarray.py:13)
   - ``xhistogram_tpu.parallel``             — explicit mesh/shard_map scaling
     (replaces the reference's dask blockwise + tree-sum, core.py:403-439)
-  - ``xhistogram_tpu.ops``                  — digitize / bincount kernels,
-    including the Pallas TPU kernel (the "native layer": the TPU equivalent of
-    numpy's C searchsorted/bincount kernels reached at reference core.py:10-17)
+  - ``xhistogram_tpu.ops``                  — digitize / bincount strategies
+    (the "native layer": the XLA equivalent of numpy's C
+    searchsorted/bincount kernels reached at reference core.py:10-17)
 """
 
 __version__ = "0.1.0"

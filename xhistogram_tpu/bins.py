@@ -1,7 +1,7 @@
 """Bin-edge specification handling (host-side / trace-time).
 
-Bin edges are *static* metadata for the TPU compute path: every kernel and the
-jit-compiled pipeline treat ``len(edges)`` as a static shape. Resolution of
+Bin edges are *static* metadata for the device compute path: the
+jit-compiled pipeline treats ``len(edges)`` as a static shape. Resolution of
 int/str bin specs (``bins=10``, ``bins="auto"``) requires concrete data, so it
 happens eagerly on the host with numpy — exactly as the reference resolves
 them via ``np.histogram_bin_edges`` (reference core.py:382-388). Traced (jit)
@@ -394,26 +394,25 @@ def bin_areas(edges_list):
 def uniform_arith_form(thresholds):
     """``(t0, d)`` when the comparison thresholds admit an EXACT arithmetic
     reconstruction ``T[k] == f32(k*d + t0)`` with ``k*d`` exactly
-    representable in float32 — the precondition for the kernels' O(1)
+    representable in float32 — the precondition for the O(1)
     arithmetic digitize (candidate index + recomputed-threshold window,
-    ops/pallas_hist._digitize_tile_uniform). Returns ``None`` otherwise
-    (the compare-chain digitize runs instead).
+    ops/digitize._digitize_uniform_arith). Returns ``None`` otherwise
+    (an edge-comparison digitize runs instead).
 
     float32 thresholds: the ``k*d``-exact requirement makes the
     reconstruction independent of FMA contraction (the product needs no
-    rounding, so fused and unfused mul+add both round once) — Mosaic does
-    not contract the expression but the CPU Pallas interpreter does
-    (scripts/uniform_arith_probe.py); this condition is safe on both. It
+    rounding, so fused and unfused mul+add both round once) — whether or
+    not a backend contracts the expression into an FMA. It
     holds for integer-width and power-of-two-width uniform grids (d with
     few mantissa bits); irrational-step linspaces fall back. The threshold
     rounding must also stay well under the spacing (``ulp(max|T|) <= d/4``)
-    so the kernel's ±2 candidate window is provably sufficient.
+    so the ±2 candidate window is provably sufficient.
 
     integer thresholds (int data / host rank codes): exact uniformity in
     integer arithmetic plus ``|T| < 2^23`` (every threshold AND every
-    nearby data value is exactly float32-representable, so the kernel's
+    nearby data value is exactly float32-representable, so the
     int→f32 cast cannot move a value across a threshold; far values round
-    but cannot re-cross — see the design note in ops/pallas_hist).
+    but cannot re-cross).
     """
     T = np.asarray(thresholds)
     n = T.shape[0]
@@ -481,35 +480,34 @@ def uniform_arith_form(thresholds):
 # a quarter of the thresholds; the f64 edges are the only sound anchor.)
 
 _DS_MAX_EXC = 16  # floor; scaled as max(16, nu // 32) — each exception
-# costs ~4 VPU ops/element vs the ~190-op model and a 30-100x-slower
-# compare-chain fallback, and near-f32-lattice edges (within the tail's
+# costs ~4 elementwise ops vs the ~190-op model, and near-f32-lattice edges (within the tail's
 # ~2^-46 resolution) recur PROPORTIONALLY to grid size on structured
 # spacings (measured: linspace(-4.2, 4.2, 4097) has 39)
-_DS_ABS_MAX_EXC = 256  # hard ceiling: each exception unrolls ~4 more VPU
-# ops into the kernel body, and certified grids are edge-cap-exempt —
-# a 1M-edge grid could otherwise bake tens of thousands of fixups into
-# one Mosaic program (compile-time blowup); past 256 the grid falls back
-_DS_MIN_EDGES = 64  # below this the compare chain is cheaper than ~190 ops
+_DS_ABS_MAX_EXC = 256  # hard ceiling: each exception unrolls ~4 more ops
+# into the compiled digitize — a 1M-edge grid could otherwise bake tens of
+# thousands of fixups into one program (compile-time blowup); past 256
+# the grid falls back
+_DS_MIN_EDGES = 64  # below this an edge compare is cheaper than ~190 ops
 _DS_FTZ_FLOOR = np.float32(2.0**-120)
 
 
 def _ds_window_model(kk, t0h, t0l, b1, b2, bl1, bl2):
-    """Bit-exact host emulation of the kernel's per-window-index threshold
-    recompute (ops/pallas_hist._digitize_tile_uniform_ds) in strict
+    """Bit-exact host emulation of the device's per-window-index threshold
+    recompute (ops/digitize._digitize_uniform_ds) in strict
     step-by-step float32.  ``kk`` is an int64 index array.  Returns
     ``(F0, rho, intermediates)``: the round-nearest f32 threshold, the
     Fast2Sum residual whose sign directs the comparison (compare_form
     thresholds are ROUNDUP of the f64 edge for the ``x >= T`` form, so the
     effective threshold is ``nextup(F0)`` when ``rho > 0``), and every
-    intermediate (for the FTZ-flush guard: the device flushes subnormal
-    VPU results that numpy keeps).
+    intermediate (for the FTZ-flush guard: a device that flushes subnormal
+    results would disagree with numpy, which keeps them).
 
-    Exactness notes, mirrored in the kernel:
+    Exactness notes, mirrored in the device code:
       - khi/klo are the 12/12 bit-split of k (< 2^24), so the products
         khi*b1, khi*b2, klo*b1, klo*b2 are all exact in f32 (12+12-bit
         mantissas) — FMA contraction cannot change an exact product, so
-        the CPU Pallas interpreter (which contracts) and Mosaic (which
-        does not) agree without barriers;
+        backends that contract and backends that do not agree without
+        barriers;
       - the four exact products accumulate through an error-free
         Fast2Sum/TwoSum chain — the dominant part of the value stays in
         the compensated head ``s4`` and every residual lands in the tail.
@@ -606,9 +604,9 @@ def uniform_ds_form(thresholds, edges64):
     per-edge ROUNDUP to f32, so the affine model must be anchored to the
     f64 values; fitting the f32-rounded endpoints injects ~1-ulp slope
     error across the grid.  Returns ``("ds", t0, t0l, inv, D, b1, b2,
-    bl1, bl2, t_last, exc)`` for ops/pallas_hist._digitize_tile_uniform_ds,
+    bl1, bl2, t_last, exc)`` for ops/digitize._digitize_uniform_ds,
     or ``None``.  (bl1/bl2: 12-bit split of the spacing's f64 residual —
-    every kernel product is exact, so FMA contraction cannot change it;
+    every device product is exact, so FMA contraction cannot change it;
     D: the candidate's integer t0l-correction, see _ds_candidate.)
 
     The kernel's per-threshold decision is ``[x >= F0] - [x == F0 and
@@ -628,7 +626,7 @@ def uniform_ds_form(thresholds, edges64):
       1. Teff(k) == T[k] outside <= max(_DS_MAX_EXC, nu // 32)
          exceptions, all finite;
       2. no nonzero intermediate below 2^-120 (the device flushes
-         subnormal VPU results; numpy does not — such grids fall back),
+         subnormal results; numpy does not — such grids fall back),
          including rho, whose flush would flip strictness;
       3. window bracketing with +-1 flush slack on the candidate:
          cand(nextbelow(Teff)) <= k+1 and (k >= 5) cand(Teff) >= k-1, so
@@ -701,7 +699,7 @@ def uniform_ds_form(thresholds, edges64):
     D = int(np.rint(np.float64(t0l) * np.float64(inv)))
     if not (0 <= D <= (1 << 22)):
         return None
-    # scalar constants feed VPU multiplies/adds: reject subnormal ones the
+    # scalar constants feed device multiplies/adds: reject subnormal ones a
     # device would flush on input
     for vconst in (float(t0l), float(b2), float(bl1), float(bl2)):
         if vconst != 0.0 and abs(vconst) < float(_DS_FTZ_FLOOR):

@@ -1,5 +1,5 @@
 """numpy-signature convenience wrappers: drop-in ``histogram`` /
-``histogram2d`` / ``histogramdd`` running on the TPU pipeline.
+``histogram2d`` / ``histogramdd`` running on the device pipeline.
 
 The reference's users often mix ``xhistogram.core.histogram`` with plain
 ``np.histogram*`` calls for full reductions; these wrappers let that code
@@ -34,7 +34,7 @@ def _np_result(h, dtype):
     ``np.histogramdd`` return float64 ALWAYS (their accumulator is created
     as float). These wrappers advertise drop-in numpy signatures, so code
     checking ``h.dtype`` or relying on float-division semantics must see
-    numpy's dtypes — the TPU-native int32 / weights-dtype contract stays
+    numpy's dtypes — the device-native int32 / weights-dtype contract stays
     on the main ``xhistogram_tpu.histogram`` API. (One value caveat
     remains documented in doc/usage.md: integer weights within int32
     range accumulate mod 2**32 — the main API's wrap contract — while

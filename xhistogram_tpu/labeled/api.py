@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import bins as _bins_mod
+from ..core import check_options
 from ..core import histogram as _positional_histogram
 from .array import NamedArray
 
@@ -188,16 +189,12 @@ def histogram(
     """Histogram of labeled arrays over named dimensions.
 
     Parameters mirror the reference (xarray.py:13-23); ``dim`` is a sequence
-    of dimension names to reduce (default: all). ``precision`` selects the
-    per-call weighted-precision mode (see ``core.histogram``). Returns a
+    of dimension names to reduce (default: all). ``method`` and
+    ``precision`` are those of ``core.histogram``. Returns a
     ``NamedArray`` (counts/weighted sums/density) with bin-center
     coordinates.
     """
-    if precision is not None and precision != "f64":
-        from ..ops.pallas_hist import validate_public_precision
-
-        validate_public_precision(precision)  # eager; rejects internal
-        # modes ('f64' is not a kernel mode: core intercepts it first)
+    check_options(method, precision)
     if weights is None:
         # mode-independent when unweighted: don't fork the pipeline cache
         precision = None

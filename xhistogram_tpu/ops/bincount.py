@@ -2,24 +2,27 @@
 
 The innermost reduction of the whole library: given a canonical 2-D layout of
 flat joint-bin indices ``g`` with shape ``(M rows, C cols)`` and optional
-weights, produce per-row counts ``(M, n_slots)``. This is the TPU equivalent
-of the reference's offset-bincount trick (reference core.py:73-83) — but TPUs
-have no fast general scatter-add, so several reformulations are provided and
-auto-selected:
+weights, produce per-row counts ``(M, n_slots)``. This is the XLA equivalent
+of the reference's offset-bincount trick (reference core.py:73-83), in three
+reformulations, auto-selected by shape:
 
-  - ``scatter``: XLA scatter-add (``.at[].add``). General; performance is
-    backend-dependent. Exactly the reference algorithm's semantics.
+  - ``scatter``: XLA scatter-add (``.at[].add``). Exactly the reference
+    algorithm's semantics. On a GPU it lowers to atomic adds.
   - ``onehot``: one-hot compare + contraction, streamed over column blocks so
     the ``(M, block, n_slots)`` one-hot stays small (the analog of the
-    reference's ``block_size`` memory bound, core.py:86-134). MXU-friendly;
-    best for small-to-medium ``n_slots``.
+    reference's ``block_size`` memory bound, core.py:86-134). Work grows
+    with ``n_slots`` per element.
   - ``sort``: per-row sort + bucket boundaries via searchsorted (weighted:
-    cumulative-sum differences). O(C log C) but fully vectorized and
-    deterministic; best for very large ``n_slots``.
+    a segmented scan over each slot's run of sorted weights). O(C log C)
+    but fully vectorized.
 
 All strategies return bit-identical integer counts (unweighted) and are
-oracle-tested against ``np.bincount``/``np.histogramdd``. The Pallas TPU
-kernel (ops/pallas_hist.py) is a fourth, fused strategy selected upstream.
+oracle-tested against ``np.bincount``/``np.histogramdd``. Integer counts are
+exact and independent of summation order. Weighted float sums accumulate in
+f32 and depend on the order of the additions: ``scatter`` on a GPU adds
+atomically in an order that can change from run to run (results agree
+within f32 rounding); ``onehot`` and ``sort`` sum in a fixed order and
+repeat bit for bit.
 """
 
 from __future__ import annotations
@@ -34,12 +37,14 @@ __all__ = [
     "bincount2d_scatter",
     "bincount2d_onehot",
     "bincount2d_sort",
+    "auto_method",
+    "gpu_method",
     "METHODS",
 ]
 
 # Soft cap on the (M, block, n_slots) one-hot temp, in elements. Plays the
 # role of the reference's _MAX_CHUNK_SIZE heuristic (core.py:114) but bounds
-# VMEM-resident intermediates instead of a host temp array.
+# a device intermediate instead of a host temp array.
 _ONEHOT_BUDGET = 4_000_000
 
 # Cap on the sort strategy's transient (rows, n_slots + 1) bucket-boundary
@@ -51,9 +56,19 @@ _SORT_POS_BUDGET = 1 << 24
 # would overflow int32; it switches to 2-D (row, slot) scatter indices.
 _SCATTER_FLAT_LIMIT = 2**31
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def _counts_dtype(weights):
     return jnp.int32 if weights is None else weights.dtype
+
+
+def _zeros_varying_like(shape, dtype, ref):
+    """Zeros for a scan carry that varies over the same shard_map mesh axes
+    as ``ref`` (a carry must keep its varying-axes type across the scan)."""
+    zeros = jnp.zeros(shape, dtype)
+    vma = tuple(getattr(jax.typeof(ref), "vma", ()))
+    return jax.lax.pcast(zeros, vma, to="varying") if vma else zeros
 
 
 def bincount2d_scatter(g, weights, n_slots):
@@ -98,8 +113,11 @@ def bincount2d_onehot(g, weights, n_slots, block_size="auto"):
     """One-hot contraction strategy, streamed over column blocks.
 
     For each block of columns: ``onehot[m, b, n] = (g[m, b] == n)`` and
-    ``counts[m, n] += sum_b w[m, b] * onehot[m, b, n]`` — a contraction XLA
-    maps onto the MXU/VPU. Unweighted counts accumulate in int32 (exact).
+    ``counts[m, n] += sum_b w[m, b] * onehot[m, b, n]``. Unweighted counts
+    accumulate in int32 (exact). The weighted contraction runs at
+    ``Precision.HIGHEST``: the one-hot operand is exact at any precision,
+    but a GPU's default f32 dot may round the weights to TF32 (10 mantissa
+    bits).
     """
     m, c = g.shape
     block = _auto_block(m, c, n_slots, block_size)
@@ -128,14 +146,16 @@ def bincount2d_onehot(g, weights, n_slots, block_size="auto"):
         ohw = oh.astype(wb.dtype)
         if not faithful:
             fin = acc + jnp.einsum(
-                "mb,mbn->mn", wb, ohw, preferred_element_type=wb.dtype
+                "mb,mbn->mn", wb, ohw, preferred_element_type=wb.dtype,
+                precision=_HIGHEST,
             )
             return fin, None
         # sanitize + per-slot nonfinite indicator counts (ops/nonfinite.py)
         flags = _nonfinite.weight_flags(wb)
         wbf = _nonfinite.sanitize(wb, flags)
         fin = acc[0] + jnp.einsum(
-            "mb,mbn->mn", wbf, ohw, preferred_element_type=wb.dtype
+            "mb,mbn->mn", wbf, ohw, preferred_element_type=wb.dtype,
+            precision=_HIGHEST,
         )
         oh_i = oh.astype(jnp.int32)
         chans = tuple(
@@ -148,10 +168,11 @@ def bincount2d_onehot(g, weights, n_slots, block_size="auto"):
     xs = (g_blocks,)
     if weights is not None:
         xs = (g_blocks, weights.reshape(m, n_blocks, block).transpose(1, 0, 2))
-    acc0 = jnp.zeros((m, n_internal), dtype)
+    acc0 = _zeros_varying_like((m, n_internal), dtype, g)
     if faithful:
         acc0 = (acc0,) + tuple(
-            jnp.zeros((m, n_internal), jnp.int32) for _ in range(3)
+            _zeros_varying_like((m, n_internal), jnp.int32, g)
+            for _ in range(3)
         )
     acc, _ = jax.lax.scan(step, acc0, xs)
     if faithful:
@@ -161,12 +182,11 @@ def bincount2d_onehot(g, weights, n_slots, block_size="auto"):
 
 
 def bincount2d_sort(g, weights, n_slots):
-    """Sort-based strategy: per-row sort, then bucket boundary differences.
+    """Sort-based strategy: per-row sort, then bucket boundaries.
 
     ``counts[m, n] = pos(n+1) - pos(n)`` where ``pos(k)`` is the insertion
-    point of ``k`` in the sorted row (weighted: differences of the inclusive
-    weight prefix sum). Deterministic and O(C log C); the scalable choice for
-    huge ``n_slots`` where one-hot work (O(C·n_slots)) explodes.
+    point of ``k`` in the sorted row (weighted: the last value of a
+    segmented sum over each slot's run). Deterministic and O(C log C).
 
     Histograms are additive, so a single huge row is first split into chunk
     rows that sort independently (XLA parallelizes across rows, not within
@@ -178,10 +198,9 @@ def bincount2d_sort(g, weights, n_slots):
         k = -(-c // _CHUNK)
         # Bound the transient memory: the bucket-boundary positions are
         # (rows, n_slots + 1) int32 per sorted row batch — batching ALL k
-        # chunk rows at huge n_slots allocates rows × slots (the r3 cap
-        # measurements saw the weighted variant kill the TPU worker at
-        # 2^24 slots × 256 chunk rows ≈ 17 GB). Scan over row blocks whose
-        # positions stay ≤ _SORT_POS_BUDGET elements instead.
+        # chunk rows at huge n_slots allocates rows × slots (2^24 slots ×
+        # 256 chunk rows ≈ 17 GB). Scan over row blocks whose positions
+        # stay ≤ _SORT_POS_BUDGET elements instead.
         rows_per_step = min(k, max(1, _SORT_POS_BUDGET // (n_slots + 1)))
         steps = -(-k // rows_per_step)
         k_pad = steps * rows_per_step
@@ -211,7 +230,7 @@ def bincount2d_sort(g, weights, n_slots):
                 part = bincount2d_sort(gb, wb, n_slots)
                 return acc + part.sum(axis=0, keepdims=True), None
 
-            acc0 = jnp.zeros((1, n_slots), _counts_dtype(weights))
+            acc0 = _zeros_varying_like((1, n_slots), _counts_dtype(weights), g)
             total, _ = jax.lax.scan(step, acc0, xs)
         if weights is None and pad:
             total = total.at[0, n_slots - 1].add(-pad)
@@ -221,67 +240,85 @@ def bincount2d_sort(g, weights, n_slots):
         gs = jnp.sort(g, axis=1)
         pos = jax.vmap(lambda row: jnp.searchsorted(row, slots, side="left"))(gs)
         return jnp.diff(pos, axis=1).astype(jnp.int32)
+    if c == 0:
+        return jnp.zeros((m, n_slots), weights.dtype)
     gs, ws = jax.lax.sort_key_val(g, weights, dimension=1)
-    faithful = _nonfinite.faithful_mode(weights)
-    if faithful:
-        # a nonfinite weight would poison the whole prefix-sum suffix
-        # (inf - inf / NaN propagation); sanitize + indicator prefix sums
-        flags = _nonfinite.weight_flags(ws)
-        ws = _nonfinite.sanitize(ws, flags)
-    cw = jnp.concatenate(
-        [jnp.zeros((m, 1), weights.dtype), jnp.cumsum(ws, axis=1)], axis=1
+    # Segmented inclusive sum over the sorted row, restarting at the first
+    # element of each slot: a slot's sum involves only its own weights (no
+    # global prefix sum to difference and cancel), and a NaN/inf weight
+    # stays in its own slot, exactly as in a scatter-add. The scan's tree
+    # order is fixed by the shape, so results repeat bit for bit.
+    head = jnp.concatenate(
+        [jnp.ones((m, 1), bool), gs[:, 1:] != gs[:, :-1]], axis=1
     )
+
+    def combine(a, b):
+        return jnp.where(b[1], b[0], a[0] + b[0]), a[1] | b[1]
+
+    seg, _ = jax.lax.associative_scan(combine, (ws, head), axis=1)
     pos = jax.vmap(lambda row: jnp.searchsorted(row, slots, side="left"))(gs)
-    bounds = jnp.take_along_axis(cw, pos, axis=1)
-    counts = jnp.diff(bounds, axis=1)
-    if faithful:
-        zero = jnp.zeros((m, 1), jnp.int32)
-        chans = tuple(
-            jnp.diff(
-                jnp.take_along_axis(
-                    jnp.concatenate(
-                        [zero, jnp.cumsum(fl.astype(jnp.int32), axis=1)],
-                        axis=1,
-                    ),
-                    pos,
-                    axis=1,
-                ),
-                axis=1,
-            )
-            for fl in flags
-        )
-        counts = _nonfinite.resolve(counts, chans)
-    return counts
+    last = jnp.clip(pos[:, 1:] - 1, 0, c - 1)
+    sums = jnp.take_along_axis(seg, last, axis=1)
+    return jnp.where(pos[:, 1:] > pos[:, :-1], sums, jnp.zeros((), ws.dtype))
 
 
 METHODS = ("scatter", "onehot", "sort")
 
 
+# ``auto`` off the CPU: sort where rows x slots is small, scatter otherwise.
+# Scatter's atomic adds contend on few hot slots; sort's per-row bucket
+# search grows with rows x slots. Whole histogram calls on an NVIDIA H100
+# 80GB HBM3 at 400 W, ms (unweighted / weighted; certified-uniform
+# digitize):
+#
+#   rows x cols        slots   scatter      sort         onehot
+#   1 x 2**26             51   22.7 / 25.7  12.8 / 15.5  18.4 / 29.1
+#   1 x 2**26           1025   15.5 / 15.6   7.5 / 10.6  258  / 268
+#   1 x 2**26           4097    7.0 /  7.0   7.8 / 11.0     —
+#   1000 x 100000         51   17.8 / 18.7  13.8 / 17.4  28.0 / 42.2
+#   1000 x 100000        256    7.3 /  7.4   6.1 / 10.4  87.2 / 113
+#   16384 x 4096          51    7.9 /  8.2  12.0 / 14.7  16.4 / 23.9
+#   2**20 x 64            81    3.0 /  3.8  11.7 / 15.0  20.9 / 74.6
+#   1 x 2**30 (T-S)    95201  308.9         346.8           —
+#   1036800 x 365         81    6.2         36.4         90.3
+#
+# One row of 2**30 elements, 50 bins (H100 at 700 W): sort 116 / 148 ms,
+# scatter 333 / 380 ms; the compiled programs hold 18.3 / 22.5 GB
+# (sort) and 26.8 / 26.8 GB (scatter) of temporaries.
+#
+# onehot does O(slots) work per element and never wins by enough to keep a
+# third branch.
+_SORT_MAX_SLOTS = 1025
+_SORT_MAX_ROW_SLOTS = 1 << 16
+
+
+def auto_method(m, n_slots):
+    """The strategy ``method='auto'`` runs for ``m`` rows of ``n_slots``
+    slots (trash slot included)."""
+    if jax.default_backend() == "cpu":
+        return "scatter"  # XLA:CPU scatter is fast at every slot count
+    return gpu_method(m, n_slots)
+
+
+def gpu_method(m, n_slots):
+    """The GPU side of ``auto_method``."""
+    if n_slots <= _SORT_MAX_SLOTS and m * n_slots <= _SORT_MAX_ROW_SLOTS:
+        return "sort"
+    return "scatter"
+
+
 def bincount2d(g, weights, n_slots, method="auto", block_size="auto"):
     """Dispatch over bincount strategies (cf. reference ``_dispatch_bincount``,
     core.py:126-134 — but dispatching on algorithm, not just blocking).
-
-    ``method='auto'`` picks by problem shape: one-hot work scales with
-    ``n_slots`` per element, sort with ``log C``; scatter is the safe default
-    on CPU where XLA scatter is fast.
-    """
+    ``method='auto'`` picks by shape (``auto_method``)."""
     if method == "auto":
-        backend = jax.default_backend()
-        if backend == "cpu":
-            method = "scatter"
-        else:
-            # On TPU: scatter is ~flat 0.3-0.5 GB/s in n_slots (serial
-            # updates, O(1)/element) and beat onehot 13x at 4096 slots and
-            # sort 20-100x above 1M (scripts/fused_midslot_probe.py /
-            # hugeslot_fallback_probe.py, r3 — the old sort rule also
-            # crashed the worker at 2^24 slots). onehot's O(n_slots)/elem
-            # contraction only wins at tiny slot counts (extrapolated
-            # crossover ~300 slots from 0.039 GB/s at 4096).
-            method = "onehot" if n_slots <= 256 else "scatter"
+        method = auto_method(g.shape[0], n_slots)
     if method == "scatter":
         return bincount2d_scatter(g, weights, n_slots)
     if method == "onehot":
         return bincount2d_onehot(g, weights, n_slots, block_size=block_size)
     if method == "sort":
         return bincount2d_sort(g, weights, n_slots)
-    raise ValueError(f"unknown bincount method {method!r}; valid: {METHODS}")
+    raise ValueError(
+        f"method={method!r}: valid values are auto|{'|'.join(METHODS)}"
+    )

@@ -1,8 +1,6 @@
-"""FTZ exactness fix shared by the Pallas kernels and the XLA digitize.
+"""Flush-to-zero exactness fix for the digitize (ops/digitize.py).
 
-One definition so the kernel and XLA semantics cannot desynchronize (the
-r2 FTZ regression came from exactly this kind of hand-synced copy; see
-core.device_view's history note).
+One definition, so every digitize form applies the same rewrite.
 """
 
 from __future__ import annotations
@@ -14,18 +12,17 @@ __all__ = ["fix_neg_subnormals"]
 
 
 def fix_neg_subnormals(x):
-    """FTZ exactness fix (f32 only): the device flushes subnormal operands
-    to ±0 in comparisons (probed on the real chip AND in the TPU-semantics
-    interpreter), so a negative-subnormal data value would land on the
+    """FTZ exactness fix (f32 only). XLA:CPU flushes subnormal compare
+    operands to ±0, so a negative-subnormal data value would land on the
     wrong side of a t == 0.0 threshold — the one representable threshold
     between it and its flushed value (thresholds strictly inside
     (-tiny, 0) are subnormal themselves and already take the exact host
-    path, core.ftz_exact_fallback). Rewrite negative subnormals to
-    -tiny_normal via BITWISE detection (integer ops don't flush): every
-    comparison against every representable non-subnormal threshold is
-    unchanged. NaN/±inf/-0.0 untouched. ~5 VPU ops per element — applied
-    unconditionally on float32 data rows (0.3-3% of kernel VPU work);
-    harmless no-op semantics on CPU."""
+    path, core.ftz_exact_fallback). XLA:GPU does not flush them (measured
+    on an NVIDIA H100; tests/test_chip.py checks it), so there the rewrite
+    changes no result. Rewrite negative subnormals to -tiny_normal via
+    BITWISE detection (integer ops don't flush): every comparison against
+    every representable non-subnormal threshold is unchanged. NaN/±inf/-0.0
+    untouched. A few integer ops per element, fused into the digitize."""
     if x.dtype != jnp.float32:
         return x
     xi = jax.lax.bitcast_convert_type(x, jnp.int32)

@@ -4,13 +4,11 @@ The reference passes weights straight into ``np.bincount``, which sums them
 in float64 (reference core.py:81) — exact for integer weights up to 2**53.
 This framework does better: integer weights stay INTEGRAL end-to-end.
 
-Two layers share the digit algebra defined here:
+In-range (int32/uint32) weights accumulate in int32 on the device —
+bit-exact modulo 2**32, which IS the int32/uint32 output contract
+(two's-complement wrap, the same result a C int32 accumulator gives).
+The digit algebra defined here serves the wider weights:
 
-  - the fused Pallas kernels decompose in-range (int32/uint32) weights
-    in-kernel into signed base-256 digits (each in int8's [-128, 127]),
-    run one int8·int8→int32 MXU dot per digit, and shift-combine in int32 —
-    bit-exact modulo 2**32, which IS the int32/uint32 output contract
-    (two's-complement wrap, the same result a C int32 accumulator gives);
   - the wide paths (numpy int64/uint64 weights beyond a lossless int32
     view) decompose HOST-side into int32 digit arrays, run one int32-weight
     histogram per digit over reduce-chunks small enough that every per-slot
@@ -22,8 +20,7 @@ Two layers share the digit algebra defined here:
 
 Digit representation: w = Σ_j d_j·256**j with every d_j ∈ [-128, 127].
 n digits span [-128·S_n, 127·S_n], S_n = (256**n - 1)/255 — so full int32
-needs 5 digits; but all device accumulation is mod 2**32, where the
-2**32-weighted 5th digit contributes nothing, so the device cap is 4.
+needs 5 digits.
 """
 
 from __future__ import annotations
@@ -31,26 +28,19 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "DEVICE_MAX_DIGITS",
     "WORD_MAX_DIGITS",
     "digit_span",
     "digits_for_bounds",
-    "device_digits",
     "host_digits",
     "host_words",
     "combine_digit_sums",
 ]
 
-#: device digit cap: contributions of digit j ≥ 4 are multiples of 2**32,
-#: i.e. ≡ 0 in the int32/uint32 (mod 2**32) output contract
-DEVICE_MAX_DIGITS = 4
-
 #: host-side digit cap: 9 signed base-256 digits span ±0.498·2**72, covering
 #: every int64/uint64 value (via the two's-complement int64 view)
 HOST_MAX_DIGITS = 9
 
-#: digit cap of one int32 WORD under the per-digit-output kernels ("digN"
-#: modes): 4 signed digits span ±128·S₄ ≈ ±0.502·2**32, which misses the
+#: digit cap of one int32 WORD under the per-digit-output device pass: 4 signed digits span ±128·S₄ ≈ ±0.502·2**32, which misses the
 #: top of int32 ((2139062144, 2**31) needs a 5th digit worth a multiple of
 #: 2**32 — the extraction's remainder lands in {-1, 0, 1}), so 5 digits
 #: cover every int32 exactly (d₄ ∈ {-1, 0, 1})
@@ -74,31 +64,6 @@ def digits_for_bounds(lo, hi, max_digits=HOST_MAX_DIGITS):
     raise ValueError(
         f"integer weights in [{lo}, {hi}] exceed {max_digits} signed "
         f"base-256 digits"
-    )
-
-
-def device_digits(host_weights, device_dtype):
-    """Static digit count for the in-kernel decomposition of one call's
-    weights.
-
-    ``host_weights`` — the pre-broadcast weights when they are a concrete
-    numpy array (actual min/max gives the minimal count: weights in
-    [0, 100] need ONE digit ⇒ one int8 MXU dot, the unweighted rate);
-    anything else (jax arrays / tracers — e.g. the labeled compiled
-    pipeline) falls back to the device dtype's bounds. Capped at
-    ``DEVICE_MAX_DIGITS`` — device accumulation is mod 2**32, where
-    higher digits contribute nothing.
-    """
-    if isinstance(host_weights, np.ndarray) and host_weights.size:
-        n = digits_for_bounds(host_weights.min(), host_weights.max())
-        return min(n, DEVICE_MAX_DIGITS)
-    dt = np.dtype(device_dtype)
-    if dt.kind == "u":
-        # uint32 rides the int32 bitcast (mod 2**32): full 4-digit cap
-        return DEVICE_MAX_DIGITS
-    info = np.iinfo(dt)
-    return min(
-        digits_for_bounds(info.min, info.max), DEVICE_MAX_DIGITS
     )
 
 
@@ -143,11 +108,10 @@ def host_words(w):
     through its two's-complement int64 view; the uint64 combine mod 2**64
     makes that exact, as with ``host_digits``).
 
-    This is the single-pass multi-digit engine's host packing (r5,
-    doc/perf_model.md headroom 5): each word rides ONE device pass of a
-    per-digit-output kernel ("digN" weighted mode — one shared digitize,
-    one int8 MXU section per digit), so full-range int64 weights cost 2-3
-    digitizes instead of host_digits' 8-9. The extraction mirrors
+    This is the single-pass multi-digit engine's host packing: each word
+    rides ONE per-digit-output device pass (one shared digitize, one
+    count per digit), so full-range int64 weights cost 2-3 digitizes
+    instead of host_digits' 8-9. The extraction mirrors
     ``_extract_digit`` at base 2**32: low ∈ [0, 2**32) with values ≥ 2**31
     borrowing from the next word, so every word is exactly representable
     in int32 and word j of the extreme int64s lands in {-1, 0, 1} at

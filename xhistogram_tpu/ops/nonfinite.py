@@ -13,9 +13,7 @@ across this package:
   3. resolve per-slot IEEE sum semantics: any NaN → NaN, both infinities →
      NaN, one sign of infinity → that infinity, else the finite sum.
 
-In the Pallas kernels the indicator matmul is gated per tile on
-``any(nonfinite)`` — clean data pays only the flag computation and one
-reduce (measured free). ``XHIST_ASSUME_FINITE_WEIGHTS=1`` skips steps 1-3
+``XHIST_ASSUME_FINITE_WEIGHTS=1`` skips steps 1-3
 entirely; integer weights always skip them (they cannot be nonfinite).
 """
 
@@ -29,8 +27,8 @@ ASSUME_FINITE = os.environ.get("XHIST_ASSUME_FINITE_WEIGHTS", "0") == "1"
 
 
 def weight_flags(w):
-    """(isnan, isposinf, isneginf) boolean masks. ``w != w`` is the NaN test
-    (works inside Pallas kernels where jnp.isnan may not lower)."""
+    """(isnan, isposinf, isneginf) boolean masks (``w != w`` is the NaN
+    test)."""
     isnan = w != w
     ispos = w == jnp.asarray(jnp.inf, w.dtype)
     isneg = w == jnp.asarray(-jnp.inf, w.dtype)

@@ -2,13 +2,14 @@
 
 This module replaces the reference's entire distributed backend — dask
 ``blockwise`` partial histograms tree-summed by the scheduler (reference
-core.py:403-439) — with the TPU-native design from SURVEY.md §2.2/§2.3:
+core.py:403-439) — with the design from SURVEY.md §2.2/§2.3:
 
   1. each device computes the histogram of its local shard with the same
      single-device kernel (embarrassingly parallel partials);
   2. partial counts are combined with ``jax.lax.psum`` over the mesh axes
-     that shard *reduced* data axes (the tree-sum equivalent, riding ICI/DCN
-     instead of host TCP);
+     that shard *reduced* data axes (the tree-sum equivalent, riding the
+     device interconnect — NCCL over NVLink between GPUs — instead of host
+     TCP);
   3. *kept* (bystander) data axes may stay sharded — the output inherits
      their sharding, no gather needed.
 
@@ -16,11 +17,9 @@ Two usage modes:
   - implicit: call ``xhistogram_tpu.core.histogram`` on mesh-sharded
     arrays. EAGER calls auto-delegate here (core._infer_mesh_sharding →
     ``histogram_sharded``), so the per-shard kernel + psum structure is
-    guaranteed. Calls traced inside a USER jit partition through GSPMD:
-    the XLA strategies natively (collectives in the HLO, pinned by
-    tests), and the pallas dispatch through its custom_partitioning rule
-    (ops/partitioning.py, r5) — per-shard fused kernels + one psum, no
-    all-gather (HLO-pinned by tests/test_custom_partitioning.py).
+    guaranteed. Calls traced inside a USER jit partition through GSPMD,
+    which partitions the XLA pipeline natively (collectives in the HLO,
+    pinned by tests).
   - explicit (this module): ``histogram_sharded`` wraps the pipeline in
     ``shard_map`` so the per-device kernel and the single ``psum`` are
     guaranteed, independent of partitioner heuristics — and the exact
@@ -46,7 +45,8 @@ from ..core import (
     _coerce_host,
     _histogram_impl,
     _prepare_device,
-    _uniform_static_key,
+    _uniform_operands,
+    check_options,
     device_view,
 )
 from ..utils.axes import normalize_axis
@@ -96,8 +96,8 @@ def histogram_sharded(
     ``broadcast_arrays``, core.py:366); ``in_spec`` lays out the BROADCAST
     shape over ``mesh``. Each device histograms its local shard; a single
     ``psum`` over the mesh axes that shard reduced data axes combines the
-    partials. Kept axes keep their sharding in the output. ``precision``
-    selects the per-call weighted-precision mode (see ``core.histogram``).
+    partials. Kept axes keep their sharding in the output. ``method`` and
+    ``precision`` are those of ``core.histogram``.
     Note an eager ``broadcast_to`` of a lower-rank operand materializes the
     full shape on the default device before resharding — pre-broadcast and
     pre-shard giant operands yourself if that matters.
@@ -106,6 +106,7 @@ def histogram_sharded(
     """
     if not args:
         raise ValueError("histogram_sharded() requires at least one input array")
+    check_options(method, precision)
 
     args = [_coerce_host(a) for a in args]
     if weights is not None:
@@ -117,7 +118,6 @@ def histogram_sharded(
     # int32 views narrow; integer weights beyond it take the exact digit
     # path below (their int64/uint64 sums cannot ride a single int32 psum).
     wide_weights = None
-    w_host_int = None  # concrete int weights (digit-count from min/max)
     if (
         weights is not None
         and isinstance(weights, np.ndarray)
@@ -128,7 +128,7 @@ def histogram_sharded(
             wide_weights = weights
             weights = None  # resolved below, after shapes/axes are known
         else:
-            weights = w_host_int = wv
+            weights = wv
 
     # precision='f64' with float weights: the exact sharded tier (r5,
     # VERDICT r4 #3) — host exponent-group decomposition + per-digit
@@ -146,7 +146,7 @@ def histogram_sharded(
             raise ValueError(
                 "precision='f64' runs the exact host decomposition, which "
                 "cannot run under tracing; call histogram_sharded eagerly "
-                "or use precision='highest'."
+                "or use the default precision."
             )
         f64_weights = np.asarray(weights, np.float64)
         weights = None  # handled by the exact digit path below
@@ -178,9 +178,7 @@ def histogram_sharded(
 
     full_out_spec = P(*(list(out_spec) + [None] * len(nbins)))
 
-    # Don't fork the jit cache on certificate VALUES the routed kernel never
-    # reads (same reduction as core.histogram) — mirrored on the PER-SHARD
-    # shape, since plan() inside the shard_map body routes on local shapes.
+    # Per-shard shape (the local pipeline chunks wide rows on it).
     entries = list(in_spec) + [None] * (ndim - len(in_spec))
     local_shape = []
     for i, entry in enumerate(entries):
@@ -195,11 +193,10 @@ def histogram_sharded(
         # Exact wide-integer / float64 weight tiers (mirror of core's
         # engine, distributed): weights decompose host-side into signed
         # base-2**32 WORDS (ops/intweights.host_words); each word rides
-        # ONE per-digit-output ("digN") device pass — one shared digitize,
-        # <= 5 int8-MXU digit sections, per-digit int32 slot sums psummed
-        # over the mesh (exact while 128 * reduced <= 2**30 < 2**31, hence
-        # the loud guard), 64-bit / double-double host combine after the
-        # gather.
+        # ONE per-digit-output device pass — one shared digitize, <= 5
+        # digit counts, per-digit int32 slot sums psummed over the mesh
+        # (exact while 128 * reduced <= 2**30 < 2**31, hence the loud
+        # guard), 64-bit / double-double host combine after the gather.
         from ..core import _INTW_CHUNK, _dd_add, _f64_weight_groups
         from ..ops import intweights as _intw
 
@@ -238,7 +235,7 @@ def histogram_sharded(
         def _digit_sums(w_int):
             """Global per-base-256-digit-position int64 slot sums of one
             integer weight array (the sharded mirror of
-            core._wide_int_digit_sums): one digN pass per word, psummed
+            core._wide_int_digit_sums): one device pass per word, psummed
             per digit, accumulated by position on the host (a word's 5th
             digit lands additively on the next word's position — the
             combine is linear, so the overlap is exact)."""
@@ -256,17 +253,13 @@ def histogram_sharded(
                 np.zeros(kshape + nbins, np.int64)
                 for _ in _builtin_range(n_pos)
             ]
+            uni, uni_vals = _uniform_operands(uniform, n_hi_clip)
             for wi, wd in enumerate(words):
-                wmode = f"dig{n_digs[wi]}"
-                uni = _uniform_static_key(
-                    uniform, n_inputs, nbins, tuple(local_shape), axis_t,
-                    method, True, jnp.int32, n_hi_clip,
-                    weighted_mode=wmode,
-                )
                 out = _sharded_impl(
                     tuple(arrays),
                     jnp.asarray(wd),
                     edges_dev,
+                    uni_vals,
                     mesh=mesh,
                     in_spec=in_spec,
                     out_spec=dig_out_spec,
@@ -278,7 +271,6 @@ def histogram_sharded(
                     psum_axes=psum_axes,
                     n_hi_clip=n_hi_clip,
                     uniform=uni,
-                    weighted_mode=wmode,
                     digit_outputs=n_digs[wi],
                 )
                 part = np.asarray(out).astype(np.int64)
@@ -367,40 +359,13 @@ def histogram_sharded(
             )
             if local_reduced >= _WIDE_LIMIT:
                 local_wide_limit = _WIDE_LIMIT
-    if precision == "f64":
-        # float weights were intercepted by the exact digit tier above;
-        # unweighted / integer weights are already exact in every mode
-        precision = None
-    if precision is not None:
-        from ..ops.pallas_hist import validate_public_precision
-
-        validate_public_precision(precision)  # rejects internal modes
-    # mode-independent when unweighted — don't fork the jit cache on it
-    if weights is None:
-        precision = None
-    elif jnp.issubdtype(weights.dtype, jnp.integer):
-        # integer weights: exact in every mode — normalize to the internal
-        # digit mode (same policy as core.histogram)
-        from ..ops.intweights import device_digits
-
-        precision = f"int{device_digits(w_host_int, weights.dtype)}"
-    uniform = _uniform_static_key(
-        uniform,
-        n_inputs,
-        nbins,
-        tuple(local_shape),
-        axis_t,
-        method,
-        weights is not None,
-        weights.dtype if weights is not None else None,
-        n_hi_clip,
-        weighted_mode=precision,
-    )
+    uniform, uniform_vals = _uniform_operands(uniform, n_hi_clip)
 
     h = _sharded_impl(
         tuple(arrays),
         weights if weights is not None else jnp.zeros((), jnp.float32),
         edges_dev,
+        uniform_vals,
         mesh=mesh,
         in_spec=in_spec,
         out_spec=full_out_spec,
@@ -412,7 +377,6 @@ def histogram_sharded(
         psum_axes=psum_axes,
         n_hi_clip=n_hi_clip,
         uniform=uniform,
-        weighted_mode=precision,
         wide=wide,
         local_wide_limit=local_wide_limit,
         pair_bits=pair_bits,
@@ -460,7 +424,6 @@ def histogram_sharded(
         "psum_axes",
         "n_hi_clip",
         "uniform",
-        "weighted_mode",
         "wide",
         "local_wide_limit",
         "pair_bits",
@@ -471,6 +434,7 @@ def _sharded_impl(
     arrays,
     weights,
     edges,
+    uniform_vals,
     *,
     mesh,
     in_spec,
@@ -483,7 +447,6 @@ def _sharded_impl(
     psum_axes,
     n_hi_clip=None,
     uniform=None,
-    weighted_mode=None,
     wide=False,
     local_wide_limit=None,
     pair_bits=32,
@@ -494,14 +457,6 @@ def _sharded_impl(
     under shard_map — shapes shrink, positions don't — so ``axis`` is reused
     as-is on the local shard."""
 
-    # pallas_call outputs carry no varying-mesh-axes annotation, so the VMA
-    # check must be skipped when a pallas kernel may run (the psum
-    # establishes the replication explicitly); every other method keeps
-    # JAX's verification on — it is free there.
-    may_use_pallas = method == "pallas" or (
-        method == "auto" and jax.default_backend() == "tpu"
-    )
-
     @partial(
         jax.shard_map,
         mesh=mesh,
@@ -509,15 +464,16 @@ def _sharded_impl(
             tuple(in_spec for _ in arrays),
             in_spec if has_weights else P(),
             tuple(P() for _ in edges),
+            P(),  # certificate values, replicated
         ),
         out_specs=(out_spec, out_spec, out_spec) if wide else out_spec,
-        check_vma=not may_use_pallas,
     )
-    def _local(arrays_l, weights_l, edges_l):
+    def _local(arrays_l, weights_l, edges_l, uniform_vals_l):
         counts = _histogram_impl(
             arrays_l,
             weights_l if has_weights else None,
             edges_l,
+            uniform_vals=uniform_vals_l,
             axis=axis,
             nbins=nbins,
             density=False,  # normalize only after the global reduction
@@ -526,7 +482,6 @@ def _sharded_impl(
             has_weights=has_weights,
             n_hi_clip=n_hi_clip,
             uniform=uniform,
-            weighted_mode=weighted_mode,
             wide_limit=local_wide_limit,
             pair_bits=pair_bits,
             digit_outputs=digit_outputs,
@@ -554,8 +509,8 @@ def _sharded_impl(
         parts = (hi, lo >> half, lo & jnp.uint32((1 << half) - 1))
         if psum_axes:
             # one pytree psum = one fused all-reduce (three separate psums
-            # would pay per-collective latency three times over ICI/DCN)
+            # would pay the per-collective latency three times)
             parts = jax.lax.psum(parts, psum_axes)
         return parts
 
-    return _local(arrays, weights, edges)
+    return _local(arrays, weights, edges, uniform_vals)

@@ -1,8 +1,8 @@
-"""Out-of-core histograms: stream host-resident chunks through the chip.
+"""Out-of-core histograms: stream host-resident chunks through the device.
 
 The reference scales beyond memory with dask: ``blockwise`` maps the kernel
 over chunks and the scheduler tree-sums the partial histograms (reference
-core.py:403-439). On one host + one (or a mesh of) TPU(s), the same
+core.py:403-439). On one host with one device (or a mesh of them), the same
 decomposition is a plain loop — histograms commute with concatenation along
 *reduced* axes — so ``StreamingHistogram`` computes each chunk's partial on
 device and accumulates on the host in wide dtypes (int64 counts / f64
@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import bins as _bins_mod
-from .core import histogram
+from .core import check_options, histogram
 
 __all__ = ["StreamingHistogram"]
 
@@ -85,10 +85,7 @@ class StreamingHistogram:
         self._axis = axis
         self._method = method
         self._block_size = block_size
-        if precision is not None and precision != "f64":
-            from .ops.pallas_hist import validate_public_precision
-
-            validate_public_precision(precision)  # at init, not 1st update
+        check_options(method, precision)  # at init, not the 1st update
         self._precision = precision
         self._blocks = None  # {kept_offset tuple: host accumulator array}
         # precision='f64' cross-chunk contract: each update()'s eager

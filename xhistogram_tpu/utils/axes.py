@@ -49,28 +49,6 @@ def kept_shape(shape, axis):
     return tuple(s for i, s in enumerate(shape) if i not in axis)
 
 
-def flatten_keep_minor(a):
-    """2-D view of all elements that preserves the minor (last) dimension.
-
-    Merging leading dims keeps the tiled device layout intact, so — unlike a
-    flatten to ``(1, size)`` — this is copy-free even when the result feeds a
-    Pallas kernel (whose operands are materialized buffers). 1-D inputs are
-    viewed as (N/k, k) for the largest power-of-two k ≤ 2048 dividing N, so
-    the sublane dimension carries real work (a (1, N) layout would force an
-    8x row-padding copy downstream); odd sizes fall back to (1, N)."""
-    if a.ndim >= 2:
-        return a.reshape(-1, a.shape[-1])
-    n = max(a.size, 0)
-    k = 2048
-    while k >= 512 and (n % k or (n // k) % 8):
-        k //= 2
-    if k >= 512:
-        return a.reshape(n // k, k)
-    # awkward sizes: (1, n) — the kernels' synthetic-row fold turns this into
-    # a well-tiled (8, ceil(n/8)) layout with correct tail masking
-    return a.reshape(1, n)
-
-
 def canonicalize_2d(a, axis):
     """Reshape ``a`` to ``(n_kept_rows, n_reduce_cols)``.
 

@@ -1,5 +1,5 @@
 """Profiling helpers (SURVEY.md §5: the reference has no in-repo tracing —
-observability came from dask's dashboard; the TPU-native equivalents are the
+observability came from dask's dashboard; the JAX equivalents are the
 JAX profiler + the ``jax.named_scope`` annotations already placed in the
 pipeline, plus this thin harness).
 """
@@ -28,14 +28,16 @@ def trace(log_dir):
 
 
 def measure(fn, *args, reps=5, warmup=1):
-    """Wall-clock a function that returns jax arrays, forcing completion via
-    host transfer (``block_until_ready`` is unreliable on remote backends —
-    see CLAUDE.md). Returns (median_seconds, list_of_seconds)."""
+    """Wall-clock a function that returns jax arrays, each call ending in
+    ``jax.block_until_ready`` (JAX returns before the device finishes).
+    Returns (median_seconds, list_of_seconds)."""
+    import jax
+
     for _ in range(warmup):
-        np.asarray(fn(*args))
+        jax.block_until_ready(fn(*args))
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        np.asarray(fn(*args))
+        jax.block_until_ready(fn(*args))
         times.append(time.perf_counter() - t0)
     return float(np.median(times)), times
